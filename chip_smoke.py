@@ -16,6 +16,24 @@ Phases, one line each (any failure raises and exits non-zero):
   serve_int8     the same engine with an int8 KV pool: two runs, equal ids
   predictor_f32  save_llm -> Config -> create_predictor().run() at full width,
                  1 layer, f32: ids equal the no-cache greedy oracle
+  train_parity   a tiny Llama built twice from one set of weights, on the card
+                 (kernels) and on the CPU (plain versions): 2 AMP-O1 AdamW steps
+                 with FLAGS_fused_optimizer and a bf16 moment2 under the same
+                 stochastic-rounding seeds; losses, step-1 grads and the
+                 params after step 2 agree
+  train_bf16     Llama-3-8B layer width at 4 layers, seq 4096, batch 1, AMP
+                 O1 bf16, fused AdamW with a bf16 moment2: 5 steps on one
+                 batch; losses finite and falling, exact launches per step,
+                 ms/step, tokens/s, peak memory, and a profiled 2-step split
+  rms_norm_entry incubate fused_rms_norm, forward and backward, at 4096 x 4096
+                 bf16 with an f32 weight: one kernel launch; output and grads
+                 against the plain version through autograd
+Kernel checks (phase kernels): flash forward, paged attention, the flash
+backward (dq and dk/dv, through autograd of the wrapper, against the plain
+backward and against autograd through the plain forward), the fused AdamW
+(64M-element buckets; the whole training bucket, slice by slice; the
+slices of a bucket past 2^31 elements) and RMSNorm, each against its plain
+version.
 Then a {"kernels": [...]} line and, last, the device line the checker reads.
 """
 from __future__ import annotations
@@ -29,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -39,6 +58,14 @@ PEAK_BYTES = 3.35e12
 
 LLAMA3_8B = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
                  num_attention_heads=32, num_key_value_heads=8, intermediate_size=14336)
+# Depth cut to 4 of 32 (1.135e9 params), as the training slice was set:
+# at 32 layers the f32 params, grads and moment1 with a bf16 moment2 alone
+# (7.24e9 params x 14 B = 101 GB) exceed one card. The measured peak at 4
+# layers (25.03 GB on an H100 80GB) is 22 B a param, the optimizer step's
+# flat copies of P and G included: about 14 layers would fit.
+TRAIN_LAYERS, TRAIN_SEQ = 4, 4096
+TINY_LLAMA = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, intermediate_size=176)
 
 # Tolerances of kernel vs plain version on the same inputs, per output row
 # (one query and head: D values w of the plain version, g of the kernel):
@@ -54,7 +81,28 @@ TOL = {
     "f32": dict(rtol=1e-5, atol_rms=5e-5, row=1e-5),
     "bf16": dict(rtol=2e-2, atol_rms=5e-2, row=1e-2),  # rtol: the bf16 output's last bit
     "int8": dict(rtol=1e-2, atol_rms=2.5e-2, row=3e-3),  # int8 pages: p stays f32 on both sides
+    # flash backward against the plain backward on the same saved tensors,
+    # rows of dq, dk and dv. A gradient row's rounding error scales with its
+    # terms, not its sum: the first query of a causal row sees one key and
+    # its dq is ~0 by cancellation in both versions. So each row's scale is
+    # at least `floor` x the whole tensor's RMS. Worst measured on an H100
+    # over the cases below (own-row scale): f32 2.0e-2 of (1e-4, 1e-4) per
+    # element and 9.2e-7 per row; bf16 0.20 of the bf16 limits per element
+    # and 0.0043 per row.
+    "f32_grad": dict(rtol=1e-5, atol_rms=2e-5, row=4e-6, floor=0.1),
+    "bf16_grad": dict(rtol=2e-2, atol_rms=5e-2, row=1e-2, floor=0.1),
 }
+# p, m and an f32 v of the fused AdamW against its plain version: one f32
+# ulp relative. Both round every operation once in the same order; the
+# measured difference on an H100 is 0 (and bf16 moment2 bits 100% equal).
+ADAMW_F32_RTOL = 2.0 ** -22
+# Flash backward against autograd through the plain forward, as a relative
+# Frobenius error per gradient tensor. The kernels (as the JAX kernels)
+# take delta = rowsum(dO * O) from the stored O, which in bf16 is rounded:
+# that shifts every ds of a row by ~2^-9 |dO||O| whatever the row's size,
+# so a row-by-row bound does not fit; autograd rounds neither O nor ds.
+# Worst measured on an H100: f32 6.6e-7, bf16 3.7e-3.
+GRAD_VS_AUTOGRAD_REL = {torch.float32: 3e-6, torch.bfloat16: 1e-2}
 LOGIT_REL_BOUND = 5e-2  # ||cached - recomputed|| / ||recomputed|| per step, bf16 over 32 layers
 
 
@@ -90,8 +138,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> dict
     got, want = got.float().reshape(-1, d), want.float().reshape(-1, d)
     err = (got - want).abs()
     rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rms = rms.clamp_min(tol.get("floor", 0.0) * want.pow(2).mean().sqrt().item())
     elem = (err / (tol["rtol"] * want.abs() + tol["atol_rms"] * rms).clamp_min(1e-30)).max().item()
-    row = (err.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+    row = (err.norm(dim=-1) / (rms.squeeze(-1) * math.sqrt(d)).clamp_min(1e-30)).max().item()
     rec = dict(max_abs_err=err.max().item(), worst_elem_ratio=elem, worst_row_rel_err=row, tol=tol)
     if not (elem <= 1.0 and row <= tol["row"]):
         raise AssertionError(f"{name}: kernel disagrees with its plain version: {rec}")
@@ -361,9 +410,441 @@ def predictor_f32(ptt):
     log("predictor_f32", prompts=len(lens), new_tokens=8, ids_equal_oracle=True)
 
 
+# ---------------------------------------------------------------------------
+# training kernels
+# ---------------------------------------------------------------------------
+
+def causal_pairs(b, sq, sk, h, causal) -> int:
+    """Visible (query, key) pairs over all heads."""
+    off = sk - sq
+    return b * h * (sum(min(sk, i + 1 + off) for i in range(sq)) if causal else sq * sk)
+
+
+def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_p=0.0,
+                    use_lse=False, timed=False):
+    """Gradients through the flash wrapper the main path calls (its
+    autograd backward launches the dq and dk/dv kernels once each) against
+    (a) the plain backward on the same saved tensors and (b) autograd
+    through the plain forward."""
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q, k, v, do = rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d), rn(b, sq, h, d)
+    g_lse = torch.randn(b, h, sq, generator=gen, device="cuda") if use_lse else None
+    scale, seed = 1.0 / math.sqrt(d), 1234
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(ta.LAUNCHES)
+    out, lse = ta.flash_attention_bshd_lse(*leaves, causal=causal, dropout_p=dropout_p,
+                                           dropout_seed=seed)
+    outs, cots = ([out, lse], [do, g_lse]) if use_lse else ([out], [do])
+    got = torch.autograd.grad(outs, leaves, cots)
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        if ta.LAUNCHES[kname] != before[kname] + 1:
+            raise AssertionError(f"{name}: {kname} was not launched exactly once")
+    out, lse = out.detach(), lse.detach()
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    if use_lse:
+        delta = delta - g_lse
+    delta = delta.contiguous()
+    args = (q, k, v, do, lse, delta, causal, scale, dropout_p, seed)
+    want = ta._flash_bwd_plain(*args)
+    pl = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out_p, lse_p = ta._flash_plain(*pl, causal, scale, dropout_p, seed)
+    want_ag = torch.autograd.grad([out_p, lse_p] if use_lse else [out_p], pl, cots)
+    del out_p, lse_p, pl
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    rec = dict(case=name)
+    for gname, gg, w, wa in zip(("dq", "dk", "dv"), got, want, want_ag):
+        rec[gname] = compare(f"{name} {gname} vs plain backward", gg, w,
+                             TOL["f32_grad" if f32 else "bf16_grad"])
+        rel = ((gg.float() - wa.float()).norm() / wa.float().norm()).item()
+        rec[gname + "_vs_autograd_rel_l2"] = rel
+        if not rel <= GRAD_VS_AUTOGRAD_REL[dtype]:
+            raise AssertionError(f"{name} {gname}: kernel vs autograd of the plain forward, "
+                                 f"relative L2 {rel} > {GRAD_VS_AUTOGRAD_REL[dtype]}")
+    rec["max_abs_err"] = max(rec[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
+    log("kernel flash_bwd", **rec)
+    if not timed:
+        return rec, rec
+    pairs = causal_pairs(b, sq, sk, h, causal)
+    dq_out = torch.empty_like(q)
+    common = dict(plain_ms=time_ms(lambda: ta._flash_bwd_plain(*args), iters=3, warmup=1))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out_l = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    common["library_ms"] = time_ms(lambda: torch.autograd.grad(out_l, (qt, kt, vt), dot,
+                                                               retain_graph=True))
+    del out_l
+    bnd_dq, by_dq = bound_ms(6.0 * pairs * d, nbytes(q, k, v, do, lse, delta, dq_out), dtype)
+    bnd_kv, by_kv = bound_ms(8.0 * pairs * d, nbytes(q, k, v, do, lse, delta, k, v), dtype)
+    dq_rec = dict(max_abs_err=rec["dq"]["max_abs_err"], ms=time_ms(lambda: ta._flash_bwd_dq_cuda(*args)),
+                  bound_ms=bnd_dq, bound_by=by_dq, **common)
+    kv_rec = dict(max_abs_err=max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"]),
+                  ms=time_ms(lambda: ta._flash_bwd_dkdv_cuda(*args)), bound_ms=bnd_kv,
+                  bound_by=by_kv, **common)
+    log("kernel flash_bwd timing", case=name, dq=dq_rec, dkdv=kv_rec,
+        note="plain_ms and library_ms are for the pair (dq, dk, dv together)")
+    return dq_rec, kv_rec
+
+
+ADAMW_CASES = [  # (name, moment2 dtype, decoupled, wd, clip scale)
+    ("f32 m2, AdamW wd 0.01, clip 0.37", torch.float32, True, 0.01, 0.37),
+    ("bf16 m2, AdamW wd 0.01, clip 1", torch.bfloat16, True, 0.01, 1.0),
+    ("bf16 m2, Adam (coupled) wd 0.01, clip 0.37", torch.bfloat16, False, 0.01, 0.37),
+]
+
+
+ADAMW_SEED = 0x9E3779B9  # above 2^31: the uint32 path
+ADAMW_SLICE = 64 * 2 ** 20  # elements per plain-version call on a large bucket
+# the smallest depth at the Llama-3-8B width whose one bucket passes 2^31
+# elements (2.23e9): the kernel's 64-bit offsets and a uint32 hash index >= 2^31
+LARGE_BUCKET_LAYERS = 9
+
+
+def adamw_bucket(gen, n, m2_dtype, pad):
+    rn = lambda: torch.randn(n, generator=gen, device="cuda")
+    p, g, m = rn() * 0.02, rn() * 1e-3, rn() * 1e-4
+    v = (rn() * 1e-4).square().to(m2_dtype)
+    for t in (p, g, m, v):
+        t[n - pad:] = 0  # padding lanes, as the engine pads a bucket
+    return p, m, v, g
+
+
+def adamw_diff(got, want) -> dict:
+    """Differences of the kernel's (p, m, v) from the plain version's."""
+    (p, m, v), (wp, wm, wv) = got, want
+    rel = lambda a, b: ((a.float() - b.float()).abs() / b.float().abs().clamp_min(1e-30)).max().item()
+    d = dict(p_max_abs_err=(p - wp).abs().max().item(), p_max_rel_err=rel(p, wp),
+             m_max_abs_err=(m - wm).abs().max().item(), m_max_rel_err=rel(m, wm))
+    if v.dtype == torch.bfloat16:
+        kb, wb = v.view(torch.int16).int(), wv.view(torch.int16).int()
+        d.update(v_bits_equal=int((kb == wb).sum()), v_elems=v.numel(),
+                 v_max_ulp_diff=(kb - wb).abs().max().item())
+    else:
+        d["v_max_rel_err"] = rel(v, wv)
+    return d
+
+
+def judge_adamw(name, diffs, padding_zero, **fields) -> dict:
+    """Merge the differences of a bucket's slices and hold them to the
+    limits: p, m and an f32 v within one f32 ulp; a bf16 v's bits equal
+    except where the f32 v' differs by an ulp (share >= 99.99%), every
+    element within one bf16 ulp; padding lanes zero."""
+    rec = dict(case=name, **fields)
+    for d in diffs:
+        for k, x in d.items():
+            rec[k] = rec.get(k, 0) + x if k in ("v_bits_equal", "v_elems") else max(rec.get(k, x), x)
+    if "v_elems" in rec:
+        rec["v_bits_equal_share"] = rec.pop("v_bits_equal") / rec.pop("v_elems")
+        ok_v = rec["v_bits_equal_share"] >= 0.9999 and rec["v_max_ulp_diff"] <= 1
+    else:
+        ok_v = rec["v_max_rel_err"] <= ADAMW_F32_RTOL
+    rec["padding_zero"] = padding_zero
+    rec["max_abs_err"] = max(rec["p_max_abs_err"], rec["m_max_abs_err"])
+    if not (ok_v and padding_zero and rec["p_max_rel_err"] <= ADAMW_F32_RTOL
+            and rec["m_max_rel_err"] <= ADAMW_F32_RTOL):
+        raise AssertionError(f"fused AdamW {name}: kernel disagrees with its plain version: {rec}")
+    log("kernel fused_adamw", **rec)
+    return rec
+
+
+def check_fused_adamw(fo, gen, n=64 * 2 ** 20):
+    """The wrapper (one launch) on a 64M-element bucket against the plain
+    version, in each case of ADAMW_CASES."""
+    pad = fo.PAD_ELEMS // 2
+    c1, c2 = 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3
+    for name, m2, decoupled, wd, clip in ADAMW_CASES:
+        p, m, v, g = adamw_bucket(gen, n, m2, pad)
+        hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=wd, decoupled=decoupled)
+        scal = fo._scalars(1e-4, clip, c1, c2, "cuda")
+        want = fo._reference_apply(p, m, v, g, scal, ADAMW_SEED, 0.9, 0.999, 1e-8, wd, decoupled,
+                                   m2 == torch.bfloat16)
+        before = fo.LAUNCHES["fused_adamw"]
+        clip_t = torch.tensor(clip, device="cuda")  # a device scalar, as the clip gives it
+        fo.fused_adamw_apply(p, m, v, g, lr=1e-4, clip_scale=clip_t, c1=c1, c2=c2, seed=ADAMW_SEED,
+                             **hp)
+        if fo.LAUNCHES["fused_adamw"] != before + 1:
+            raise AssertionError(f"{name}: the wrapper did not launch the fused AdamW kernel once")
+        torch.cuda.synchronize()
+        padding_zero = all(bool((t[n - pad:] == 0).all()) for t in (p, m, v))
+        judge_adamw(name, [adamw_diff((p, m, v), want)], padding_zero, n=n)
+        del p, m, v, g, want
+
+
+def train_bucket_elems(cfg) -> int:
+    """Elements of the one flat bucket of a Llama (all params share a key)."""
+    hdim, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    kv = hdim // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
+    layer = 2 * hdim * hdim + 2 * hdim * kv + 3 * hdim * f + 2 * hdim
+    return 2 * v * hdim + cfg["num_hidden_layers"] * layer + hdim
+
+
+def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
+    """The wrapper on a bucket of `n_real` elements as the training step
+    calls it (bf16 m2, AdamW wd 0.01, clip 1; one launch), held against the
+    plain version slice by slice, each slice hashed at its flat offset:
+    every slice, or those that begin at `starts`.
+
+    Timed: kernel, plain and library times. The plain version runs over the
+    bucket in slices (one call would need ~60 GB of temporaries); the
+    library call is torch._fused_adamw_ on the same f32 p, m, g with an f32
+    v, as a list of the same slices."""
+    n = fo.pad_to_tile(n_real)
+    p, m, v, g = adamw_bucket(gen, n, torch.bfloat16, n - n_real)
+    kw = dict(lr=1e-4, clip_scale=1.0, c1=1.0 - 0.9 ** 3, c2=1.0 - 0.999 ** 3, seed=ADAMW_SEED,
+              beta1=0.9, beta2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+    hp = (ADAMW_SEED, 0.9, 0.999, 1e-8, 0.01, True, True)
+    scal = fo._scalars(kw["lr"], 1.0, kw["c1"], kw["c2"], "cuda")
+    starts = range(0, n, ADAMW_SLICE) if starts is None else starts
+    saved = {i: tuple(t[i:i + ADAMW_SLICE].clone() for t in (p, m, v)) for i in starts}
+    before = fo.LAUNCHES["fused_adamw"]
+    fo.fused_adamw_apply(p, m, v, g, **kw)
+    if fo.LAUNCHES["fused_adamw"] != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not launch the fused AdamW kernel once")
+    diffs = []
+    for i in list(saved):
+        s = slice(i, i + ADAMW_SLICE)
+        want = fo._reference_apply(*saved.pop(i), g[s], scal, *hp, base=i)
+        diffs.append(adamw_diff((p[s], m[s], v[s]), want))
+        del want
+    padding_zero = all(bool((t[n_real:] == 0).all()) for t in (p, m, v))
+    rec = judge_adamw(name, diffs, padding_zero, n=n, slices_compared=len(diffs))
+    if not timed:
+        return rec
+
+    def plain():
+        for i in range(0, n, ADAMW_SLICE):
+            s = slice(i, i + ADAMW_SLICE)
+            fo._reference_apply(p[s], m[s], v[s], g[s], scal, *hp, base=i)
+
+    v32 = v.float()
+    parts = lambda t: list(t.split(ADAMW_SLICE))
+    steps = [torch.tensor(3.0, device="cuda") for _ in parts(p)]
+    lib = lambda: torch._fused_adamw_(parts(p), parts(g), parts(m), parts(v32), [], steps, lr=1e-4,
+                                      beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                                      amsgrad=False, maximize=False)
+    bnd, by = bound_ms(20.0 * n, nbytes(p, m, v, g) + nbytes(p, m, v), torch.float32)
+    rec = dict(rec, ms=time_ms(lambda: fo.fused_adamw_apply(p, m, v, g, **kw), iters=10, warmup=2),
+               plain_ms=time_ms(plain, iters=2, warmup=1), library_ms=time_ms(lib, iters=10, warmup=2),
+               bound_ms=bnd, bound_by=by, bytes_per_elem=(nbytes(p, m, v, g) + nbytes(p, m, v)) / n)
+    log("kernel fused_adamw timing", n=n, ms=rec["ms"], plain_ms=rec["plain_ms"],
+        library_ms=rec["library_ms"], bound_ms=bnd, bound_by=by, bytes_per_elem=rec["bytes_per_elem"],
+        note="library: torch._fused_adamw_ with an f32 moment2 (28 B/elem), no bf16 form")
+    return rec
+
+
+def check_rms_norm(IF, gen, name, r, d, dtype, bias, w_dtype=None, timed=False):
+    """x of `dtype`; weight and bias of `w_dtype` (x's by default)."""
+    w_dtype = w_dtype or dtype
+    x = torch.randn(r, d, generator=gen, device="cuda").to(dtype)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype)
+    b = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(w_dtype) if bias else None
+    before = IF.LAUNCHES["rms_norm"]
+    got = IF.fused_rms_norm(x, w, b, epsilon=1e-6)
+    if IF.LAUNCHES["rms_norm"] != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not launch the RMSNorm kernel exactly once")
+    want = IF._rms_norm_ref(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    rec = dict(case=name, **compare(name, got, want, TOL["f32" if dtype == torch.float32 else "bf16"]))
+    if timed:
+        # a weight of another dtype than x takes torch's unfused rms_norm, which warns
+        warnings.filterwarnings("ignore", message="Mismatch dtype between input and weight")
+        bnd, by = bound_ms(4.0 * r * d, nbytes(x, w, got) + (nbytes(b) if bias else 0), dtype)
+        rec.update(ms=time_ms(lambda: IF.fused_rms_norm(x, w, b, epsilon=1e-6)),
+                   plain_ms=time_ms(lambda: IF._rms_norm_ref(x, w, b, 1e-6)),
+                   library_ms=None if bias else time_ms(
+                       lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6)),
+                   bound_ms=bnd, bound_by=by)
+    log("kernel rms_norm", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# card vs CPU, tiny Llama in bf16 O1 (bf16 GEMMs round at other points on
+# the two devices); measured on an H100: loss 2.7e-5, grads 0.018,
+# params 3.84 lr at most and 0.0096 lr on average
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_REL = 5e-2  # per-tensor ||g_card - g_cpu|| / ||g_cpu|| of the step-1 grads
+TRAIN_PARAM_MAX_OVER_LR = 4.4  # 2 steps, each at most a flipped update of ~lr (1.1 lr with bias correction)
+TRAIN_PARAM_MEAN_OVER_LR = 0.05
+TRAIN_LR = 1e-3
+
+
+def train_step(ptt, model, opt, ids, labels):
+    with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss, _ = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def train_parity(ptt):
+    """The tiny Llama on the card (kernels) and on the CPU (plain versions)
+    from the same weights and batch, 2 AMP-O1 fused-AdamW steps each."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(3)
+    ref = LlamaForCausalLM(**TINY_LLAMA, device="cpu")
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, TINY_LLAMA["vocab_size"], (2, 64)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = LlamaForCausalLM(**TINY_LLAMA, device="meta")
+        model.load_state_dict({k: t.to(dev) for k, t in ref.state_dict().items()}, assign=True)
+        opt = ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
+                                  moment2_dtype="bfloat16")
+        ptt.seed(11)  # the same stochastic-rounding seeds on both sides
+        x = ids.to(dev)
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss1, _ = model(x, labels=x)
+        loss1.backward()
+        grads = {n: p.grad.detach().float().cpu().clone() for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        loss2 = train_step(ptt, model, opt, x, x)
+        runs[dev] = dict(losses=[loss1.item(), loss2.item()], grads=grads,
+                         params={n: p.detach().float().cpu() for n, p in model.named_parameters()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    grad_rel = max(((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for n, g in cpu["grads"].items())
+    dp = torch.cat([(card["params"][n] - w).abs().reshape(-1) for n, w in cpu["params"].items()])
+    rec = dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_max_rel_err=loss_rel,
+               grad_max_rel_l2_err=grad_rel, param_max_abs_diff_over_lr=dp.max().item() / TRAIN_LR,
+               param_mean_abs_diff_over_lr=dp.mean().item() / TRAIN_LR,
+               tol=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL,
+                        param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                        param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR))
+    # Adam normalises the gradient: where |g| is near its rounding noise
+    # one step can move a param by up to lr either way, so the params are
+    # held to two flipped updates at most, and on average to a small part of lr
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL
+            and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+            and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR):
+        raise AssertionError(f"train_parity: card and CPU runs disagree: {rec}")
+    log("train_parity", layers=TINY_LLAMA["num_hidden_layers"], hidden=TINY_LLAMA["hidden_size"],
+        steps=2, **rec)
+
+
+def profile_train(ptt, model, opt, ids, step_ms, steps=2):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            train_step(ptt, model, opt, ids, ids)
+        torch.cuda.synchronize()
+    by_kind = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        n = e.key.lower()
+        kind = ("flash_fwd" if "flash_fwd" in n else
+                "flash_bwd" if "flash_bwd" in n else
+                "optimizer" if "fused_adamw" in n else
+                "gemm" if any(t in n for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
+                "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+    busy = sum(by_kind.values())
+    return dict(steps=steps, step_ms=step_ms,
+                device_ms_per_step={k: round(v, 3) for k, v in sorted(by_kind.items())},
+                device_busy_ms=busy if by_kind else None,
+                device_idle_share=(1.0 - busy / step_ms) if by_kind else None)
+
+
+def rms_norm_entry(ta, IF, state):
+    """The fused_rms_norm entry point as a user calls it, forward and
+    backward, at the Llama-3-8B width (4096 tokens x 4096, bf16): its own
+    path, apart from training, where nn.RMSNorm runs the plain rms_norm
+    as in the JAX package."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(1, TRAIN_SEQ, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    w = torch.nn.Parameter((1.0 + 0.1 * torch.randn(4096, generator=gen, device="cuda")))
+    g_out = torch.randn(1, TRAIN_SEQ, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    ta.reset_launch_counts()
+    out = IF.fused_rms_norm(x, w)
+    out.backward(g_out)
+    torch.cuda.synchronize()
+    launches = IF.LAUNCHES["rms_norm"]
+    ok = (launches == 1 and out.shape == x.shape and out.dtype == torch.bfloat16
+          and all(bool(torch.isfinite(t).all()) for t in (out, x.grad, w.grad)))
+    if not ok:
+        raise AssertionError(f"rms_norm_entry: launches {launches}, or a non-finite output/grad")
+    state["rms_norm_launches"] = {"rms_norm": launches}
+    # the same inputs and output cotangent through the plain version and autograd
+    xr, wr = (t.detach().clone().requires_grad_(True) for t in (x, w))
+    want = IF._rms_norm_ref(xr, wr, None, 1e-6)
+    want.backward(g_out)
+    tol = TOL["bf16"]
+    rec = dict(out=compare("rms_norm_entry out", out.detach(), want.detach(), tol),
+               dx=compare("rms_norm_entry dx", x.grad, xr.grad, tol),
+               dw=compare("rms_norm_entry dw", w.grad[None], wr.grad[None], tol))
+    log("rms_norm_entry", shape=list(x.shape), x_dtype="bfloat16", w_dtype="float32",
+        launches=launches, grads_finite=True, **rec)
+
+
+TRAIN_PER_STEP = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+                  "flash_bwd_dkdv": TRAIN_LAYERS, "fused_adamw": 1}
+
+
+def train_bf16(ptt, ta, state, steps=5):
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = dict(LLAMA3_8B, num_hidden_layers=TRAIN_LAYERS)
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(**cfg, device="cuda")
+    opt = ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, cfg["vocab_size"], (1, TRAIN_SEQ))).cuda()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the main path: every count 0 before it, read after it. Step 1 also
+    # builds the optimizer bucket, so ms/step is timed over steps 2..N.
+    ta.reset_launch_counts()
+    losses, per_step = [], []
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(ta.LAUNCHES)
+        losses.append(train_step(ptt, model, opt, ids, ids))
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in TRAIN_PER_STEP})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    launches = dict(ta.LAUNCHES)
+    losses = [x.item() for x in losses]
+    if any(d != TRAIN_PER_STEP for d in per_step):
+        raise AssertionError(f"train_bf16: launches per step {per_step} != {TRAIN_PER_STEP}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_bf16: losses not finite and falling: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_train(ptt, model, opt, ids, step_ms)
+    state["train_launches"] = launches
+    log("train_bf16", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=1,
+        params_b=sum(p.numel() for p in model.parameters()) / 1e9, init_s=init_s,
+        losses=losses, ms_per_step=step_ms, tokens_per_sec=TRAIN_SEQ / (step_ms / 1e3),
+        peak_mem_gb=peak, launches=launches, launches_per_step=per_step[0])
+    log("train_bf16 profile", **prof)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32",
+    ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
+                                        "train_parity,train_bf16,rms_norm_entry",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -396,6 +877,8 @@ def main(argv=None) -> int:
                                            1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, timed=True)
         check_flash(ta, gen, "bf16 causal B1 S2048 H32/8 D128", 1, 2048, 2048, 32, 8, 128,
                     torch.bfloat16, True, timed=True)
+        check_flash(ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
+                    torch.bfloat16, True, timed=True)
         check_flash(ta, gen, "bf16 causal B2 Sq300 Sk777 H32/8 D128 (ragged tiles)", 2, 300, 777,
                     32, 8, 128, torch.bfloat16, True)
         check_flash(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32, False)
@@ -407,6 +890,40 @@ def main(argv=None) -> int:
         check_paged(ta, gen, f"decode Q1 {ctx} int8 pages", 1, torch.int8, timed=True)
         check_paged(ta, gen, f"extend Q40 {ctx} bf16 (rows split over 2 CTAs)", 40, None)
         check_paged(ta, gen, f"decode Q1 {ctx} f32 (predictor)", 1, None, qdt=torch.float32)
+        records["flash_bwd_dq"], records["flash_bwd_dkdv"] = check_flash_bwd(
+            ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
+            torch.bfloat16, True, timed=True)
+        check_flash_bwd(ta, gen, "bf16 causal B1 Sq300 Sk777 H32/8 D128 (ragged tiles)", 1, 300,
+                        777, 32, 8, 128, torch.bfloat16, True)
+        check_flash_bwd(ta, gen, "f32 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
+                        torch.float32, True, dropout_p=0.1)
+        check_flash_bwd(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32,
+                        False)
+        check_flash_bwd(ta, gen, "f32 causal S128 H4/2 D64, loss on out and lse", 1, 128, 128, 4, 2,
+                        64, torch.float32, True, use_lse=True)
+        from paddle_tpu_torch.incubate.nn import functional as IF
+        from paddle_tpu_torch.ops import fused_optimizer as fo
+
+        check_fused_adamw(fo, gen)
+        n_train = train_bucket_elems(dict(LLAMA3_8B, num_hidden_layers=TRAIN_LAYERS))
+        records["fused_adamw"] = check_adamw_bucket(
+            fo, gen, f"bf16 m2, AdamW wd 0.01, the {TRAIN_LAYERS}-layer training bucket", n_train,
+            timed=True)
+        torch.cuda.empty_cache()
+        n_large = train_bucket_elems(dict(LLAMA3_8B, num_hidden_layers=LARGE_BUCKET_LAYERS))
+        check_adamw_bucket(fo, gen, f"bf16 m2, AdamW wd 0.01, a {LARGE_BUCKET_LAYERS}-layer bucket "
+                           "(past 2^31 elements): the slices across 2^31 and the last",
+                           n_large, starts=[2 ** 31 - ADAMW_SLICE // 2, 2 ** 31 + ADAMW_SLICE // 2,
+                                            fo.pad_to_tile(n_large) - ADAMW_SLICE])
+        torch.cuda.empty_cache()
+        records["rms_norm"] = check_rms_norm(
+            IF, gen, "bf16 R4096 D4096, f32 weight (the entry point's types)", 4096, 4096,
+            torch.bfloat16, False, w_dtype=torch.float32, timed=True)
+        check_rms_norm(IF, gen, "bf16 R4096 D4096", 4096, 4096, torch.bfloat16, False, timed=True)
+        check_rms_norm(IF, gen, "bf16 R4096 D4096 bias", 4096, 4096, torch.bfloat16, True, timed=True)
+        check_rms_norm(IF, gen, "f32 R4096 D4096", 4096, 4096, torch.float32, False)
+        check_rms_norm(IF, gen, "bf16 R333 D1032 (ragged R)", 333, 1032, torch.bfloat16, True)
+        torch.cuda.empty_cache()
     if "serve_bf16" in phases:
         model = serve_bf16(ptt, ta, state)
         if "serve_int8" in phases:
@@ -415,17 +932,36 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "predictor_f32" in phases:
         predictor_f32(ptt)
+    if "train_parity" in phases:
+        train_parity(ptt)
+    if "train_bf16" in phases:
+        train_bf16(ptt, ta, state)
+    if "rms_norm_entry" in phases:
+        from paddle_tpu_torch.incubate.nn import functional as IF
 
-    sources = {"flash_fwd": ("paddle_tpu_torch/ops/kernels/flash_fwd.cu", "paddle_tpu/ops/pallas.py:427"),
-               "paged_attn": ("paddle_tpu_torch/ops/kernels/paged_attn.cu", "paddle_tpu/ops/pallas.py:961")}
+        rms_norm_entry(ta, IF, state)
+
+    k = "paddle_tpu_torch/ops/kernels/"
+    sources = {
+        "flash_fwd": (k + "flash_fwd.cu", "paddle_tpu/ops/pallas.py:427"),
+        "paged_attn": (k + "paged_attn.cu", "paddle_tpu/ops/pallas.py:961"),
+        "flash_bwd_dq": (k + "flash_bwd.cu", "paddle_tpu/ops/pallas.py:609 (pallas_call :649)"),
+        "flash_bwd_dkdv": (k + "flash_bwd.cu", "paddle_tpu/ops/pallas.py:609 (pallas_call :687)"),
+        "fused_adamw": (k + "fused_adamw.cu", "paddle_tpu/ops/fused_optimizer.py:140"),
+        "rms_norm": (k + "rms_norm.cu", "paddle_tpu/incubate/nn/functional/__init__.py:67"),
+    }
+    by_path = {"serve_bf16": state.get("launches", {}), "train_bf16": state.get("train_launches", {}),
+               "fused_rms_norm": state.get("rms_norm_launches", {})}
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = records.get(name, {})
+        counts = {path: c[name] for path, c in by_path.items() if name in c}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=state.get("launches", {}).get(name), max_abs_err=rec.get("max_abs_err"),
-            ms=rec.get("ms"), plain_ms=rec.get("plain_ms"), bound_ms=rec.get("bound_ms"),
-            bound_by=rec.get("bound_by"), library_ms=rec.get("library_ms")))
+            launches=sum(counts.values()) if counts else None, launches_by_path=counts,
+            max_abs_err=rec.get("max_abs_err"), ms=rec.get("ms"), plain_ms=rec.get("plain_ms"),
+            bound_ms=rec.get("bound_ms"), bound_by=rec.get("bound_by"),
+            library_ms=rec.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,21 +1,37 @@
-"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu, serving slice.
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving and
+training slices).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
-cuda:0 unless `set_device("cpu")` asks for the CPU. The flash-forward and
-paged-attention kernels are hand-written CUDA for sm_90a
-(ops/kernels/*.cu), built with nvcc at first CUDA use.
+cuda:0 unless `set_device("cpu")` asks for the CPU. The kernels (flash
+forward and backward, paged attention, fused AdamW, RMSNorm) are
+hand-written CUDA for sm_90a (ops/kernels/*.cu), built with nvcc at first
+CUDA use.
 
     import paddle_tpu_torch as paddle
     paddle.seed(0)
     model = paddle.models.llama.LlamaForCausalLM(**config)
-    engine = paddle.inference.InferenceEngine(model, max_seq_len=2048)
+
+    # serving
+    engine = paddle.inference.InferenceEngine(model.eval(), max_seq_len=2048)
     ids = engine.generate(prompts, max_new_tokens=32)
+
+    # training
+    paddle.set_flags({"FLAGS_fused_optimizer": True})
+    opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                                 moment2_dtype="bfloat16")
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss, _ = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
 """
-from . import framework, inference, models, nn, ops, quantization, utils
+from . import amp, framework, incubate, inference, models, nn, ops, optimizer, quantization, utils
 from .framework.device import get_device, set_device
 from .framework.dtype import get_default_dtype, set_default_dtype
+from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 
-__all__ = ["framework", "inference", "models", "nn", "ops", "quantization", "utils",
-           "get_device", "set_device", "get_default_dtype", "set_default_dtype", "seed"]
+__all__ = ["amp", "framework", "incubate", "inference", "models", "nn", "ops", "optimizer",
+           "quantization", "utils", "get_device", "set_device", "get_default_dtype",
+           "set_default_dtype", "get_flags", "set_flags", "seed"]

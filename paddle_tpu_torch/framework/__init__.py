@@ -1,4 +1,4 @@
-"""Device, dtype, seeded generators and paddle.save/load."""
-from . import device, dtype, io, random
+"""Device, dtype, flags, seeded generators and paddle.save/load."""
+from . import device, dtype, flags, io, random
 
-__all__ = ["device", "dtype", "io", "random"]
+__all__ = ["device", "dtype", "flags", "io", "random"]

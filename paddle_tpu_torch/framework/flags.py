@@ -1,0 +1,66 @@
+"""Global flags registry (counterpart of paddle_tpu/framework/flags.py).
+
+`set_flags`/`get_flags` as in paddle. A flag's default can be overridden
+by an environment variable of the same name. Only the flags the port
+reads are defined.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+_lock = threading.Lock()
+_registry: dict = {}
+_docs: dict = {}
+
+
+def define_flag(name: str, default, doc: str = "") -> None:
+    """Register a flag; a FLAGS_* environment variable overrides `default`."""
+    with _lock:
+        if name in _registry:
+            return
+        env = os.environ.get(name)
+        value = default
+        if env is not None:
+            if isinstance(default, bool):
+                value = env.lower() in ("1", "true", "yes", "on")
+            elif isinstance(default, int):
+                value = int(env)
+            elif isinstance(default, float):
+                value = float(env)
+            else:
+                value = env
+        _registry[name] = value
+        _docs[name] = doc
+
+
+def set_flags(flags: dict) -> None:
+    """paddle.set_flags: all or nothing, an unknown name raises before any
+    flag changes."""
+    with _lock:
+        unknown = [k for k in flags if k not in _registry]
+        if unknown:
+            raise KeyError(f"unknown flag {unknown[0]!r}; define_flag it first")
+        _registry.update(flags)
+
+
+def get_flags(flags) -> dict:
+    """paddle.get_flags: a name or a list of names -> {name: value}."""
+    if isinstance(flags, str):
+        flags = [flags]
+    with _lock:
+        return {k: _registry[k] for k in flags}
+
+
+def get_flag(name: str):
+    with _lock:
+        return _registry[name]
+
+
+define_flag(
+    "FLAGS_fused_optimizer",
+    False,
+    "route Adam/AdamW through the flat-bucket engine (optimizer/fused_engine.py): "
+    "params, moments and grads of one (dtype, weight decay, lr scale, clip) bucket "
+    "update in one fused AdamW kernel launch per step",
+)

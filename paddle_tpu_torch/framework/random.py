@@ -42,3 +42,11 @@ def fresh_int32_seed(device: Union[str, torch.device] = "cpu") -> int:
     call gets when it names none)."""
     gen = generator(device)
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=gen.device).item())
+
+
+def next_uint32() -> int:
+    """One uint32 from the CPU generator: the per-step seed of the
+    optimizer's stochastic rounding (counterpart of `Adam._m2_key`,
+    paddle_tpu/optimizer/optimizer.py:464-469). Drawn on the host, so a
+    step on the card does not wait for the device to hand a seed back."""
+    return int(torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, generator=generator("cpu")))

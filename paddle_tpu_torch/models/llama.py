@@ -1,5 +1,8 @@
-"""Llama decoder-only LM with the serving cache mode (counterpart of
-paddle_tpu/models/llama.py).
+"""Llama decoder-only LM with the training loss and the serving cache mode
+(counterpart of paddle_tpu/models/llama.py).
+
+`forward(ids, labels=)` returns (loss, None): the fused LM-head
+cross-entropy of h[:, :-1] against labels[:, 1:].
 
 `forward(ids, cache=, positions=, last_index=)`: with `cache` (an
 inference/kv_cache.PagedCacheView) a prefill (positions=None) writes the
@@ -23,8 +26,9 @@ from torch.nn import functional as TF
 from ..framework import device as _device
 from ..framework import dtype as _dtype
 from ..framework import random as _random
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn import functional as F
-from ..nn.layers import RMSNorm
+from ..nn.layers import Linear, RMSNorm
 from ..ops.attention import flash_decode_paged, flash_decode_paged_multi
 
 _ROPE_POS_GRANULE = 512  # table length rounds up to this (bounds cache entries)
@@ -79,10 +83,10 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = hidden_size // num_heads
         self.layer_idx = 0  # position in the decoder stack (set by LlamaModel)
-        self.q_proj = nn.Linear(hidden_size, num_heads * self.head_dim, **kw)
-        self.k_proj = nn.Linear(hidden_size, self.num_kv_heads * self.head_dim, **kw)
-        self.v_proj = nn.Linear(hidden_size, self.num_kv_heads * self.head_dim, **kw)
-        self.o_proj = nn.Linear(num_heads * self.head_dim, hidden_size, **kw)
+        self.q_proj = Linear(hidden_size, num_heads * self.head_dim, **kw)
+        self.k_proj = Linear(hidden_size, self.num_kv_heads * self.head_dim, **kw)
+        self.v_proj = Linear(hidden_size, self.num_kv_heads * self.head_dim, **kw)
+        self.o_proj = Linear(num_heads * self.head_dim, hidden_size, **kw)
 
     def forward(self, x, cache=None, positions=None):
         b, s = x.shape[0], x.shape[1]
@@ -127,9 +131,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, hidden_size, intermediate_size, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(hidden_size, intermediate_size, **kw)
-        self.up_proj = nn.Linear(hidden_size, intermediate_size, **kw)
-        self.down_proj = nn.Linear(intermediate_size, hidden_size, **kw)
+        self.gate_proj = Linear(hidden_size, intermediate_size, **kw)
+        self.up_proj = Linear(hidden_size, intermediate_size, **kw)
+        self.down_proj = Linear(intermediate_size, hidden_size, **kw)
 
     def forward(self, x):
         return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -206,7 +210,7 @@ class LlamaForCausalLM(nn.Module):
         meta = dict(device="meta", dtype=dt)
         self.llama = LlamaModel(**config, **meta)
         hidden = self.config["hidden_size"]
-        self.lm_head = nn.Linear(hidden, self.config["vocab_size"], bias=False, **meta)
+        self.lm_head = Linear(hidden, self.config["vocab_size"], bias=False, **meta)
         if dev.type != "meta":
             self.to_empty(device=dev)
             self.reset_parameters(_random.generator(dev))
@@ -223,9 +227,12 @@ class LlamaForCausalLM(nn.Module):
                 m.weight.fill_(1.0)
 
     def forward(self, input_ids, labels=None, cache=None, positions=None, last_index=None):
-        if labels is not None:
-            raise NotImplementedError("the training loss comes with the training slice")
         h = self.llama(input_ids, cache=cache, positions=positions)
+        if labels is not None:
+            # fused LM head + shifted CE; lm_head.weight is [V, H]
+            loss = fused_linear_cross_entropy(h[:, :-1], self.lm_head.weight, labels[:, 1:],
+                                              transpose_weight=True)
+            return loss, None
         if last_index is not None:
             # one position per row before the LM head (prefill takes the
             # prompt's true last token; skips the [B, S, V] logits)

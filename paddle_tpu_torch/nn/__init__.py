@@ -1,5 +1,6 @@
-"""Layers and functionals of the serving slice."""
-from . import functional
-from .layers import RMSNorm
+"""Layers, functionals and gradient clipping."""
+from . import clip, functional
+from .clip import ClipGradByGlobalNorm
+from .layers import Linear, RMSNorm
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["clip", "functional", "ClipGradByGlobalNorm", "Linear", "RMSNorm"]

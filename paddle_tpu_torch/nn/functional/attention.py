@@ -9,6 +9,7 @@ chain runs only where the JAX package never runs its kernel either: an
 """
 from __future__ import annotations
 
+from ...amp import amp_cast_inputs
 from ...ops import attention as _attn
 
 
@@ -16,7 +17,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
                                  is_causal=False, training=True, dropout_seed=None):
     """[B, S, H, D] attention; key/value may carry fewer heads (GQA).
     Dropout applies only when `training`, from the position hash keyed by
-    `dropout_seed` (None draws one from the framework generator)."""
+    `dropout_seed` (None draws one from the framework generator). Under
+    AMP the inputs cast as the white-listed op (bf16 under O1)."""
+    query, key, value, attn_mask = amp_cast_inputs(
+        "scaled_dot_product_attention", [query, key, value, attn_mask])
     p_drop = float(dropout_p) if training else 0.0
     _attn._check_heads(query, key, value)
     sq, sk, d = query.shape[1], key.shape[1], query.shape[-1]

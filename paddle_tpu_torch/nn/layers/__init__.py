@@ -1,3 +1,4 @@
+from .common import Linear
 from .norm import RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["Linear", "RMSNorm"]

@@ -1,4 +1,5 @@
-"""Attention ops with hand-written CUDA kernels (see attention.py)."""
-from . import attention
+"""Ops with hand-written CUDA kernels: attention (flash forward and
+backward, paged), the fused AdamW update; launch counts in launches.py."""
+from . import attention, fused_optimizer, launches
 
-__all__ = ["attention"]
+__all__ = ["attention", "fused_optimizer", "launches"]

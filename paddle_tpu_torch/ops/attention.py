@@ -1,5 +1,5 @@
-"""Flash-forward and paged attention: the counterpart of the flash and paged
-parts of paddle_tpu/ops/pallas.py.
+"""Flash attention (forward and backward) and paged attention: the
+counterpart of the flash and paged parts of paddle_tpu/ops/pallas.py.
 
 Each kernel has three pieces here:
 - the plain PyTorch version of the function (the CPU path, and the
@@ -7,8 +7,9 @@ Each kernel has three pieces here:
 - the wrapper, which launches the hand-written CUDA kernel
   (ops/kernels/*.cu) for a CUDA tensor or raises, and takes the plain
   version only for a CPU tensor;
-- a launch count in `LAUNCHES`, bumped where the kernel launches and
-  nowhere else, so a run can show that its main path went through it.
+- a launch count in `LAUNCHES` (ops/launches.py), bumped where the kernel
+  launches and nowhere else, so a run can show that its main path went
+  through it.
 
 Layouts follow the JAX package: q/k/v [B, S, H, D]; pages [N, bs, Hkv, D].
 """
@@ -21,15 +22,9 @@ from typing import Tuple
 import torch
 
 from ..framework import random as _random
-
-LAUNCHES = {"flash_fwd": 0, "paged_attn": 0}
+from .launches import LAUNCHES, reset_launch_counts  # noqa: F401  (re-exported)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -177,20 +172,131 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# B2/B3: flash backward (pallas.py:482-705)
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+    """Plain version of the two backward kernels: the recompute-based FA2
+    backward with the kernels' rounding points. lse and delta are f32
+    [B, H, Sq] (delta = rowsum(dO*O) - g_lse). p = exp(s - lse);
+    dp = dO.V^T, times z = keep/(1-p) under dropout; ds = p*(dp - delta)*scale.
+    dq = ds.K with ds rounded to k's type; dv = (p*z)^T.dO with p*z rounded
+    to dO's type and dk = ds^T.Q with ds rounded to q's type, summed over
+    each kv head's group of q heads in f32. Returns (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    qh, doh = q.transpose(1, 2).float(), do.transpose(1, 2).float()
+    kh = repeat_kv(k, group).transpose(1, 2).float()
+    vh = repeat_kv(v, group).transpose(1, 2).float()
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        visible = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+        p = p.masked_fill(~visible, 0.0)
+    dp = doh @ vh.transpose(-1, -2)
+    pz = p
+    if dropout_p > 0.0:
+        keep = dropout_keep_reference(seed, b * h, sq, sk, dropout_p, device=q.device)
+        inv_keep = torch.tensor(1.0 / (1.0 - dropout_p), dtype=torch.float32)
+        z = torch.where(keep.reshape(b, h, sq, sk), inv_keep.to(q.device), 0.0)
+        dp = dp * z
+        pz = p * z
+    ds = p * (dp - delta[..., None]) * scale
+    dq = ds.to(k.dtype).float() @ kh
+    dk = ds.to(q.dtype).float().transpose(-1, -2) @ qh
+    dv = pz.to(do.dtype).float().transpose(-1, -2) @ doh
+    fold = lambda t: t.reshape(b, hkv, group, sk, d).sum(dim=2)  # the group's q heads, f32
+    return (dq.to(q.dtype).transpose(1, 2), fold(dk).to(k.dtype).transpose(1, 2),
+            fold(dv).to(v.dtype).transpose(1, 2))
+
+
+def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", do)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash backward kernel: {name} must be on {q.device}, got {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
+            raise TypeError(f"flash backward kernel takes float32 or bfloat16 tensors of one "
+                            f"dtype, got {name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash backward kernel: {name} must be contiguous")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash backward kernel: {name} must be contiguous float32 on {q.device}")
+    if q.shape[-1] > 256:
+        raise ValueError(f"flash backward kernel: head_dim {q.shape[-1]} > 256")
+
+
+def _bwd_launch(fn_name, outs, q, k, v, do, lse, delta, causal, scale, dropout_p, seed) -> None:
+    from .kernels import build
+
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    use_drop = dropout_p > 0.0
+    rc = build.function(fn_name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in outs), _DTYPE_CODE[q.dtype], b, sq, sk, h, hkv, d, int(causal),
+        float(scale), int(use_drop), int(seed) & _M32,
+        _keep_threshold(dropout_p) if use_drop else 0,
+        float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, fn_name)
+    LAUNCHES[fn_name] += 1
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed) -> torch.Tensor:
+    """B2: the dq kernel (ops/kernels/flash_bwd.cu), one launch."""
+    _check_bwd_operands(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, causal, scale, dropout_p, seed)
+    return dq
+
+
+def _flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+    """B3: the dk/dv kernel (ops/kernels/flash_bwd.cu), one launch."""
+    _check_bwd_operands(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkdv", (dk, dv), q, k, v, do, lse, delta, causal, scale, dropout_p,
+                seed)
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+    """The two hand-written backward kernels: dq, then dk/dv."""
+    args = (q, k, v, do, lse, delta, causal, scale, dropout_p, seed)
+    return (_flash_bwd_dq_cuda(*args),) + _flash_bwd_dkdv_cuda(*args)
+
+
 class _FlashForward(torch.autograd.Function):
-    """Forward only: the backward kernels (TPU kernels B2/B3) come with
-    the training slice."""
+    """The flash kernel as a differentiable op (the JAX package's
+    custom_vjp `_flash_core`, pallas.py:712-737): forward saves q, k, v,
+    out, lse and the seed; backward runs the two backward kernels on CUDA
+    tensors (the plain version on CPU tensors). Both out and lse are
+    differentiable: lse's cotangent folds into delta (pallas.py:619-627)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
         impl = _flash_cuda if q.is_cuda else _flash_plain
-        return impl(q, k, v, causal, scale, dropout_p, seed)
+        out, lse = impl(q, k, v, causal, scale, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, dropout_p, seed)
+        ctx.set_materialize_grads(False)  # an unused output's gradient arrives as None
+        return out, lse
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward (TPU kernels B2/B3) is ported with the training slice"
-        )
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        # delta = rowsum(dO * O) in f32, minus the lse cotangent: [B, H, Sq]
+        delta = (g_out.float() * out.float()).sum(dim=-1).transpose(1, 2)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        impl = _flash_bwd_cuda if q.is_cuda else _flash_bwd_plain
+        dq, dk, dv = impl(q, k, v, g_out.contiguous(), lse.contiguous(), delta.contiguous(),
+                          *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def _flash(q, k, v, causal, sm_scale, dropout_p, dropout_seed):

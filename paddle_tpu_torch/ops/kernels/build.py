@@ -24,8 +24,9 @@ from typing import Dict, List
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 
-# kernel name -> source file in this directory
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_attn": "paged_attn.cu"}
+# library name -> source file in this directory
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_attn": "paged_attn.cu", "flash_bwd": "flash_bwd.cu",
+           "fused_adamw": "fused_adamw.cu", "rms_norm": "rms_norm.cu"}
 _HEADERS = ("common.cuh",)
 
 NVCC_FLAGS = [
@@ -38,13 +39,20 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# C entry point and argument types of each library (see the extern "C"
-# functions at the end of each source)
+_L = ctypes.c_longlong
+_BWD = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P]  # dtype .. stream
+# kernel function -> (library, C entry point, argument types); see the
+# extern "C" functions at the end of each source
 _SIGNATURES = {
-    "flash_fwd": ("ptt_flash_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                    _U, _U, _F, _P]),
-    "paged_attn": ("ptt_paged_attn", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _F, _P]),
+    "flash_fwd": ("flash_fwd", "ptt_flash_fwd",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P]),
+    "paged_attn": ("paged_attn", "ptt_paged_attn",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD),
+    "flash_bwd_dkdv": ("flash_bwd", "ptt_flash_bwd_dkdv", [_P] * 8 + _BWD),
+    "fused_adamw": ("fused_adamw", "ptt_fused_adamw",
+                    [_P, _P, _P, _P, _P, _L, _I, _I, _I, _U, _F, _F, _F, _F, _F, _F, _I, _P]),
+    "rms_norm": ("rms_norm", "ptt_rms_norm", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -113,14 +121,13 @@ def function(name: str):
     with _lock:
         if name not in _functions:
             build()
-            for n in SOURCES:
-                lib = ctypes.CDLL(str(_library_path(n)))
-                sym, argtypes = _SIGNATURES[n]
-                f = getattr(lib, sym)
+            libs = {n: ctypes.CDLL(str(_library_path(n))) for n in SOURCES}
+            _libraries.extend(libs.values())
+            for fname, (lib, sym, argtypes) in _SIGNATURES.items():
+                f = getattr(libs[lib], sym)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _libraries.append(lib)
-                _functions[n] = f
+                _functions[fname] = f
     return _functions[name]
 
 

@@ -13,17 +13,21 @@ import torch
 from paddle_tpu_torch.ops import attention as ta
 
 
-def _assert_close(got, want, dt):
+def _assert_close(got, want, dt, floor=0.0):
     """Per output row w (D values): each element within
     rtol * |w| + atol_rms * rms(w), and the row within a relative L2
-    error; the same rule and limits as chip_smoke.py's."""
+    error; the same rule and limits as chip_smoke.py's. `floor` raises
+    each row's scale to at least that share of the whole tensor's RMS (a
+    gradient row can be ~0 by cancellation while its rounding error
+    follows its terms)."""
     rtol, atol_rms, row = (2e-2, 5e-2, 1e-2) if dt == torch.bfloat16 else (1e-5, 5e-5, 1e-5)
     d = want.shape[-1]
     got, want = got.float().reshape(-1, d), want.float().reshape(-1, d)
     err = (got - want).abs()
     rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    rms = rms.clamp_min(floor * want.pow(2).mean().sqrt().item())
     assert (err <= rtol * want.abs() + atol_rms * rms).all(), err.max().item()
-    rel = err.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    rel = err.norm(dim=-1) / (rms.squeeze(-1) * math.sqrt(d)).clamp_min(1e-30)
     assert rel.max().item() <= row
 
 
@@ -71,3 +75,87 @@ def test_cuda_kernel_matches_plain(case):
         want = ta.paged_extend_reference(q, kp, vp, bt, qpos, **kw)
         _assert_close(got, want, dt)
         assert ta.LAUNCHES["paged_attn"] == before["paged_attn"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bwd_bf16_causal_gqa", "bwd_f32_ragged", "bwd_f32_dropout_lse"])
+def test_cuda_flash_backward_matches_plain(case):
+    """On the card: gradients through the flash wrapper (its backward
+    launches the dq and dk/dv kernels once each) against the plain backward
+    on the same saved tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dt = torch.bfloat16 if case.startswith("bwd_bf16") else torch.float32
+    sq, sk = (300, 777) if case == "bwd_f32_ragged" else (256, 256)
+    p = 0.1 if "dropout" in case else 0.0
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    q, k, v, do = rn(1, sq, 8, 128), rn(1, sk, 2, 128), rn(1, sk, 2, 128), rn(1, sq, 8, 128)
+    g_lse = torch.randn(1, 8, sq, generator=g, device=dev) if "lse" in case else None
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(ta.LAUNCHES)
+    out, lse = ta.flash_attention_bshd_lse(*leaves, causal=True, dropout_p=p, dropout_seed=7)
+    got = torch.autograd.grad([out, lse] if g_lse is not None else [out], leaves,
+                              [do, g_lse] if g_lse is not None else [do])
+    assert ta.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert ta.LAUNCHES["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
+    delta = (do.float() * out.detach().float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse
+    want = ta._flash_bwd_plain(q, k, v, do, lse.detach(), delta.contiguous(), True,
+                               1.0 / math.sqrt(128), p, 7)
+    for a, w in zip(got, want):
+        _assert_close(a, w, dt, floor=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m2", [torch.float32, torch.bfloat16])
+def test_cuda_fused_adamw_matches_plain(m2):
+    """On the card: the fused AdamW kernel rounds every operation as the
+    plain version does; a bf16 moment2's bits agree (at least 99.99%, the
+    rest within one bf16 ulp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = fo.PAD_ELEMS * 64
+    rn = lambda: torch.randn(n, generator=g, device=dev)
+    p, m, grad = rn() * 0.02, rn() * 1e-4, rn() * 1e-3
+    v = (rn() * 1e-4).square().to(m2)
+    kw = dict(lr=1e-4, clip_scale=0.5, c1=0.271, c2=0.002997, seed=0xDEADBEEF, beta1=0.9,
+              beta2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+    scal = fo._scalars(kw["lr"], kw["clip_scale"], kw["c1"], kw["c2"], dev)
+    wp, wm, wv = fo._reference_apply(p, m, v, grad, scal, kw["seed"], 0.9, 0.999, 1e-8, 0.01, True,
+                                     m2 == torch.bfloat16)
+    before = fo.LAUNCHES["fused_adamw"]
+    fo.fused_adamw_apply(p, m, v, grad, **kw)
+    assert fo.LAUNCHES["fused_adamw"] == before + 1
+    torch.testing.assert_close(p, wp, rtol=2.0 ** -22, atol=0)
+    torch.testing.assert_close(m, wm, rtol=2.0 ** -22, atol=0)
+    if m2 == torch.bfloat16:
+        kb, wb = v.view(torch.int16).int(), wv.view(torch.int16).int()
+        assert (kb == wb).float().mean().item() >= 0.9999
+        assert (kb - wb).abs().max().item() <= 1
+    else:
+        torch.testing.assert_close(v, wv, rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,bias", [(torch.bfloat16, True), (torch.float32, False)])
+def test_cuda_rms_norm_matches_plain(dt, bias):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(333, 1032, generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn(1032, generator=g, device=dev)).to(dt)
+    b = (0.1 * torch.randn(1032, generator=g, device=dev)).to(dt) if bias else None
+    before = IF.LAUNCHES["rms_norm"]
+    got = IF.fused_rms_norm(x, w, b)
+    assert IF.LAUNCHES["rms_norm"] == before + 1
+    _assert_close(got, IF._rms_norm_ref(x, w, b, 1e-6), dt)
