@@ -16,11 +16,12 @@ Phases, one line each (any failure raises and exits non-zero):
   serve_int8     the same engine with an int8 KV pool: two runs, equal ids
   predictor_f32  save_llm -> Config -> create_predictor().run() at full width,
                  1 layer, f32: ids equal the no-cache greedy oracle
-  train_parity   a tiny Llama built twice from one set of weights, on the card
-                 (kernels) and on the CPU (plain versions): 2 AMP-O1 AdamW steps
-                 with FLAGS_fused_optimizer and a bf16 moment2 under the same
-                 stochastic-rounding seeds; losses, step-1 grads and the
-                 params after step 2 agree
+  train_parity   two tiny Llamas (head_dim 16: the CUDA-core flash kernels;
+                 head_dim 64: the tensor-core ones), each built twice from one
+                 set of weights, on the card (kernels) and on the CPU (plain
+                 versions): 2 AMP-O1 AdamW steps with FLAGS_fused_optimizer and
+                 a bf16 moment2 under the same stochastic-rounding seeds;
+                 losses, step-1 grads and the params after step 2 agree
   train_bf16     Llama-3-8B layer width at 4 layers, seq 4096, batch 1, AMP
                  O1 bf16, fused AdamW with a bf16 moment2: 5 steps on one
                  batch; losses finite and falling, exact launches per step,
@@ -30,7 +31,8 @@ Phases, one line each (any failure raises and exits non-zero):
                  against the plain version through autograd
 Kernel checks (phase kernels): flash forward, paged attention, the flash
 backward (dq and dk/dv, through autograd of the wrapper, against the plain
-backward and against autograd through the plain forward), the fused AdamW
+backward and against autograd through the plain forward; every flash case
+logs the kernel variant it ran, ops.attention.kernel_variant), the fused AdamW
 (64M-element buckets; the whole training bucket, slice by slice; the
 slices of a bucket past 2^31 elements) and RMSNorm, each against its plain
 version.
@@ -42,6 +44,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -66,6 +69,9 @@ LLAMA3_8B = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
 TRAIN_LAYERS, TRAIN_SEQ = 4, 4096
 TINY_LLAMA = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                   num_key_value_heads=2, intermediate_size=176)
+# head_dim 64: the bf16 flash forward and dk/dv take their tensor-core
+# variants (head_dim 16 above takes the CUDA-core ones)
+TINY_LLAMA_D64 = dict(TINY_LLAMA, hidden_size=256, intermediate_size=704)
 
 # Tolerances of kernel vs plain version on the same inputs, per output row
 # (one query and head: D values w of the plain version, g of the kernel):
@@ -104,6 +110,51 @@ ADAMW_F32_RTOL = 2.0 ** -22
 # Worst measured on an H100: f32 6.6e-7, bf16 3.7e-3.
 GRAD_VS_AUTOGRAD_REL = {torch.float32: 3e-6, torch.bfloat16: 1e-2}
 LOGIT_REL_BOUND = 5e-2  # ||cached - recomputed|| / ||recomputed|| per step, bf16 over 32 layers
+
+
+def _kernel_name(mangled: str) -> str:
+    """`flash_fwd_tc_kernel<128>` from an Itanium-mangled kernel symbol."""
+    # a length prefix may follow other digits (a hash in the namespace)
+    for m, cut in ((m, c) for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled)
+                   for c in range(m.start(), m.end())):
+        n = int(mangled[cut:m.end()])
+        name = mangled[m.end():m.end() + n]
+        if not name.endswith("_kernel"):
+            continue
+        rest, args, i = mangled[m.end() + n:], [], 1
+        while rest.startswith("I") and i < len(rest) and rest[i] != "E":
+            if rest[i] == "L":  # a literal: L<type><value>E
+                j = rest.index("E", i)
+                args.append(rest[i + 2:j])
+                i = j + 1
+            elif rest[i].isdigit():  # a named type
+                k = re.match(r"\d+", rest[i:]).group()
+                t = rest[i + len(k):i + len(k) + int(k)]
+                args.append({"__nv_bfloat16": "bf16"}.get(t, t))
+                i += len(k) + int(k)
+            else:  # a builtin type
+                args.append({"f": "float"}.get(rest[i], rest[i]))
+                i += 1
+        return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_summary(nvcc_log: str) -> list:
+    """One line per kernel of `nvcc -Xptxas -v` output (its name and
+    template arguments, registers, spills), and ptxas's warnings."""
+    out, name, spill = [], "?", "?"
+    for ln in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill stores" in ln:
+            spill = ln.split(",")[1].strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+        elif "(C7" in ln:  # ptxas performance warnings, e.g. serialized wgmma
+            out.append(ln.split(":", 1)[1].strip()[:120])
+    return out
 
 
 def log(phase: str, **fields) -> None:
@@ -164,7 +215,8 @@ def check_flash(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_p=0.
     scale = 1.0 / math.sqrt(d)
     want, lse_w = ta._flash_plain(q, k, v, causal, scale, dropout_p, 1234)
     torch.cuda.synchronize()
-    rec = dict(case=name, **compare(name, got, want, TOL["f32" if dtype == torch.float32 else "bf16"]))
+    rec = dict(case=name, variant=ta.kernel_variant("flash_fwd", dtype, d),
+               **compare(name, got, want, TOL["f32" if dtype == torch.float32 else "bf16"]))
     rec["lse_err"] = (lse - lse_w).abs().max().item()
     if not rec["lse_err"] <= 1e-4:
         raise AssertionError(f"{name}: lse disagrees with the plain version: {rec}")
@@ -452,7 +504,8 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     del out_p, lse_p, pl
     torch.cuda.synchronize()
     f32 = dtype == torch.float32
-    rec = dict(case=name)
+    rec = dict(case=name, variant={kn: ta.kernel_variant(kn, dtype, d)
+                                   for kn in ("flash_bwd_dq", "flash_bwd_dkdv")})
     for gname, gg, w, wa in zip(("dq", "dk", "dv"), got, want, want_ag):
         rec[gname] = compare(f"{name} {gname} vs plain backward", gg, w,
                              TOL["f32_grad" if f32 else "bf16_grad"])
@@ -478,11 +531,11 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     bnd_dq, by_dq = bound_ms(6.0 * pairs * d, nbytes(q, k, v, do, lse, delta, dq_out), dtype)
     bnd_kv, by_kv = bound_ms(8.0 * pairs * d, nbytes(q, k, v, do, lse, delta, k, v), dtype)
     dq_rec = dict(max_abs_err=rec["dq"]["max_abs_err"], ms=time_ms(lambda: ta._flash_bwd_dq_cuda(*args)),
-                  bound_ms=bnd_dq, bound_by=by_dq, **common)
+                  bound_ms=bnd_dq, bound_by=by_dq, variant=rec["variant"]["flash_bwd_dq"], **common)
     kv_rec = dict(max_abs_err=max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"]),
                   ms=time_ms(lambda: ta._flash_bwd_dkdv_cuda(*args)), bound_ms=bnd_kv,
-                  bound_by=by_kv, **common)
-    log("kernel flash_bwd timing", case=name, dq=dq_rec, dkdv=kv_rec,
+                  bound_by=by_kv, variant=rec["variant"]["flash_bwd_dkdv"], **common)
+    log("kernel flash_bwd timing", case=name, variant=rec["variant"], dq=dq_rec, dkdv=kv_rec,
         note="plain_ms and library_ms are for the pair (dq, dk, dv together)")
     return dq_rec, kv_rec
 
@@ -682,19 +735,23 @@ def train_step(ptt, model, opt, ids, labels):
     return loss
 
 
-def train_parity(ptt):
-    """The tiny Llama on the card (kernels) and on the CPU (plain versions)
+def train_parity(ptt, ta, cfg):
+    """A tiny Llama on the card (kernels) and on the CPU (plain versions)
     from the same weights and batch, 2 AMP-O1 fused-AdamW steps each."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
 
     ptt.set_flags({"FLAGS_fused_optimizer": True})
     ptt.seed(3)
-    ref = LlamaForCausalLM(**TINY_LLAMA, device="cpu")
+    ref = LlamaForCausalLM(**cfg, device="cpu")
     rng = np.random.RandomState(4)
-    ids = torch.from_numpy(rng.randint(0, TINY_LLAMA["vocab_size"], (2, 64)))
+    ids = torch.from_numpy(rng.randint(0, cfg["vocab_size"], (2, 64)))
+    head_dim = cfg["hidden_size"] // cfg["num_attention_heads"]
+    variant = {k: ta.kernel_variant(k, torch.bfloat16, head_dim)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
     runs = {}
+    before = dict(ta.LAUNCHES)
     for dev in ("cuda", "cpu"):
-        model = LlamaForCausalLM(**TINY_LLAMA, device="meta")
+        model = LlamaForCausalLM(**cfg, device="meta")
         model.load_state_dict({k: t.to(dev) for k, t in ref.state_dict().items()}, assign=True)
         opt = ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
                                   moment2_dtype="bfloat16")
@@ -709,6 +766,10 @@ def train_parity(ptt):
         loss2 = train_step(ptt, model, opt, x, x)
         runs[dev] = dict(losses=[loss1.item(), loss2.item()], grads=grads,
                          params={n: p.detach().float().cpu() for n, p in model.named_parameters()})
+    launches = {k: ta.LAUNCHES[k] - before[k] for k in variant}
+    if any(n != 2 * cfg["num_hidden_layers"] for n in launches.values()):
+        raise AssertionError(f"train_parity: flash launches {launches}, expected one per layer "
+                             "per step on the card")
     card, cpu = runs["cuda"], runs["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
     grad_rel = max(((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
@@ -727,8 +788,8 @@ def train_parity(ptt):
             and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
             and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR):
         raise AssertionError(f"train_parity: card and CPU runs disagree: {rec}")
-    log("train_parity", layers=TINY_LLAMA["num_hidden_layers"], hidden=TINY_LLAMA["hidden_size"],
-        steps=2, **rec)
+    log("train_parity", layers=cfg["num_hidden_layers"], hidden=cfg["hidden_size"],
+        head_dim=head_dim, variant=variant, launches=launches, steps=2, **rec)
 
 
 def profile_train(ptt, model, opt, ids, step_ms, steps=2):
@@ -865,22 +926,30 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     logs = build.build(force=True)
-    ptx = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-           for k, v in logs.items()}
-    log("build", seconds=time.perf_counter() - t0, ptxas=ptx)
+    log("build", seconds=time.perf_counter() - t0,
+        ptxas={k: ptxas_summary(v) for k, v in logs.items()})
 
     state: dict = {}
     records = {}
     if "kernels" in phases:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        records["flash_fwd"] = check_flash(ta, gen, "bf16 causal B1 S1024 H32/8 D128 (serve prefill)",
-                                           1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, timed=True)
-        check_flash(ta, gen, "bf16 causal B1 S2048 H32/8 D128", 1, 2048, 2048, 32, 8, 128,
-                    torch.bfloat16, True, timed=True)
-        check_flash(ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
-                    torch.bfloat16, True, timed=True)
+        bf = torch.bfloat16
+        timed = [check_flash(ta, gen, f"bf16 causal B1 S{s} H32/8 D128{note}", 1, s, s, 32, 8, 128,
+                             bf, True, timed=True)
+                 for s, note in ((1024, " (serve prefill)"), (2048, ""), (4096, " (train)"))]
+        records["flash_fwd"] = dict(timed[0], by_shape=[
+            {k: r[k] for k in ("case", "variant", "ms", "plain_ms", "library_ms", "bound_ms",
+                               "max_abs_err")} for r in timed])
         check_flash(ta, gen, "bf16 causal B2 Sq300 Sk777 H32/8 D128 (ragged tiles)", 2, 300, 777,
-                    32, 8, 128, torch.bfloat16, True)
+                    32, 8, 128, bf, True)
+        check_flash(ta, gen, "bf16 causal B2 S2048 H32/8 D128", 2, 2048, 2048, 32, 8, 128, bf, True)
+        check_flash(ta, gen, "bf16 dropout p=0.1 seed 1234 S256 H8/2 D128 causal", 1, 256, 256, 8, 2,
+                    128, bf, True, dropout_p=0.1)
+        for causal in (True, False):
+            check_flash(ta, gen, f"bf16 {'causal' if causal else 'non-causal'} B2 S512 H12/12 D64 "
+                        "(ERNIE heads)", 2, 512, 512, 12, 12, 64, bf, causal, timed=causal)
+        check_flash(ta, gen, "bf16 causal S256 H8/2 D96 (a head dim of the CUDA-core variant only)",
+                    1, 256, 256, 8, 2, 96, bf, True)
         check_flash(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32, False)
         check_flash(ta, gen, "f32 dropout p=0.1 seed 1234 S256 H8/2 D128 causal", 1, 256, 256, 8, 2,
                     128, torch.float32, True, dropout_p=0.1)
@@ -894,7 +963,18 @@ def main(argv=None) -> int:
             ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
             torch.bfloat16, True, timed=True)
         check_flash_bwd(ta, gen, "bf16 causal B1 Sq300 Sk777 H32/8 D128 (ragged tiles)", 1, 300,
-                        777, 32, 8, 128, torch.bfloat16, True)
+                        777, 32, 8, 128, bf, True)
+        check_flash_bwd(ta, gen, "bf16 causal B2 S2048 H32/8 D128", 2, 2048, 2048, 32, 8, 128, bf,
+                        True)
+        check_flash_bwd(ta, gen, "bf16 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
+                        bf, True, dropout_p=0.1)
+        check_flash_bwd(ta, gen, "bf16 causal S256 H8/2 D128, loss on out and lse", 1, 256, 256, 8, 2,
+                        128, bf, True, use_lse=True)
+        for causal in (True, False):
+            check_flash_bwd(ta, gen, f"bf16 {'causal' if causal else 'non-causal'} B2 S512 H12/12 "
+                            "D64 (ERNIE heads)", 2, 512, 512, 12, 12, 64, bf, causal, timed=causal)
+        check_flash_bwd(ta, gen, "bf16 causal S256 H8/2 D96 (a head dim of the CUDA-core variant "
+                        "only)", 1, 256, 256, 8, 2, 96, bf, True)
         check_flash_bwd(ta, gen, "f32 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
                         torch.float32, True, dropout_p=0.1)
         check_flash_bwd(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32,
@@ -933,7 +1013,8 @@ def main(argv=None) -> int:
     if "predictor_f32" in phases:
         predictor_f32(ptt)
     if "train_parity" in phases:
-        train_parity(ptt)
+        for cfg in (TINY_LLAMA, TINY_LLAMA_D64):
+            train_parity(ptt, ta, cfg)
     if "train_bf16" in phases:
         train_bf16(ptt, ta, state)
     if "rms_norm_entry" in phases:
@@ -961,7 +1042,8 @@ def main(argv=None) -> int:
             launches=sum(counts.values()) if counts else None, launches_by_path=counts,
             max_abs_err=rec.get("max_abs_err"), ms=rec.get("ms"), plain_ms=rec.get("plain_ms"),
             bound_ms=rec.get("bound_ms"), bound_by=rec.get("bound_by"),
-            library_ms=rec.get("library_ms")))
+            library_ms=rec.get("library_ms"), variant=rec.get("variant", "cuda_core"),
+            **({"by_shape": rec["by_shape"]} if "by_shape" in rec else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -47,7 +47,10 @@ def _rope_tables(max_pos: int, d: int, pos_base: float):
 @functools.lru_cache(maxsize=8)
 def _rope_tables_on(max_pos: int, d: int, pos_base: float, device: str):
     cos, sin = _rope_tables(max_pos, d, pos_base)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    # normal tensors even when first built under the engine's inference
+    # mode: autograd may not save inference tensors for a later backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def _rope(q, k, pos_base=10000.0, positions=None, max_pos=None):

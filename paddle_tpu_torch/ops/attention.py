@@ -26,6 +26,34 @@ from .launches import LAUNCHES, reset_launch_counts  # noqa: F401  (re-exported)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+# ---------------------------------------------------------------------------
+# which kernel runs: the one place the choice is made
+# ---------------------------------------------------------------------------
+
+# kernels with a bf16 tensor-core (wgmma) variant, and the head dims it takes
+TC_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+TC_HEAD_DIMS = (64, 128)
+_VARIANT_CODE = {"cuda_core": 0, "wgmma": 1}
+
+
+def kernel_variant(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel variant that `kernel` ("flash_fwd", "flash_bwd_dq"
+    or "flash_bwd_dkdv") runs for q/k/v of `dtype` and `head_dim`: "wgmma"
+    (the bf16 tensor-core kernel) for bf16 at a head dim of TC_HEAD_DIMS,
+    "cuda_core" otherwise. f32 stays on the CUDA cores: the tensor cores
+    would take it as TF32. Decided on dtype and head dim alone; the C entry
+    point launches what it is given and refuses a variant it cannot run."""
+    if kernel in TC_KERNELS and dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def _check_tc_operands(name: str, tensors) -> None:
+    """TMA reads a tensor through a map whose base must be 16-byte aligned."""
+    for tname, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel (wgmma variant): {tname} must start 16-byte aligned")
+
 
 # ---------------------------------------------------------------------------
 # dropout: stateless position hash (pallas.py:164-215)
@@ -158,6 +186,9 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
     sk, hkv = k.shape[1], k.shape[2]
     if d > 256:
         raise ValueError(f"flash kernel: head_dim {d} > 256")
+    variant = kernel_variant("flash_fwd", q.dtype, d)
+    if variant == "wgmma":
+        _check_tc_operands("flash", (("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     use_drop = dropout_p > 0.0
@@ -165,7 +196,7 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, sq, sk, h, hkv, d, int(causal), float(scale), int(use_drop),
             int(seed) & _M32, _keep_threshold(dropout_p) if use_drop else 0,
-            float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0,
+            float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, _VARIANT_CODE[variant],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
@@ -234,12 +265,17 @@ def _bwd_launch(fn_name, outs, q, k, v, do, lse, delta, causal, scale, dropout_p
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     use_drop = dropout_p > 0.0
+    variant = kernel_variant(fn_name, q.dtype, d)
+    if variant == "wgmma":
+        _check_tc_operands(fn_name, (("q", q), ("k", k), ("v", v), ("dout", do)))
+    # dq's entry point has no variant argument: it has one kernel
+    extra = (_VARIANT_CODE[variant],) if fn_name in TC_KERNELS else ()
     rc = build.function(fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *(t.data_ptr() for t in outs), _DTYPE_CODE[q.dtype], b, sq, sk, h, hkv, d, int(causal),
         float(scale), int(use_drop), int(seed) & _M32,
         _keep_threshold(dropout_p) if use_drop else 0,
-        float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0,
+        float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, *extra,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, fn_name)
     LAUNCHES[fn_name] += 1

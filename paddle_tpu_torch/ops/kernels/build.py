@@ -27,7 +27,7 @@ BUILD_DIR = _HERE / "_build"
 # library name -> source file in this directory
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_attn": "paged_attn.cu", "flash_bwd": "flash_bwd.cu",
            "fused_adamw": "fused_adamw.cu", "rms_norm": "rms_norm.cu"}
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "sm90.cuh")
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -40,16 +40,17 @@ NVCC_FLAGS = [
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
-_BWD = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P]  # dtype .. stream
+_BWD = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F]  # dtype .. inv_keep
 # kernel function -> (library, C entry point, argument types); see the
 # extern "C" functions at the end of each source
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "ptt_flash_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _P]),
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I,
+                   _P]),
     "paged_attn": ("paged_attn", "ptt_paged_attn",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD),
-    "flash_bwd_dkdv": ("flash_bwd", "ptt_flash_bwd_dkdv", [_P] * 8 + _BWD),
+    "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD + [_P]),
+    "flash_bwd_dkdv": ("flash_bwd", "ptt_flash_bwd_dkdv", [_P] * 8 + _BWD + [_I, _P]),
     "fused_adamw": ("fused_adamw", "ptt_fused_adamw",
                     [_P, _P, _P, _P, _P, _L, _I, _I, _I, _U, _F, _F, _F, _F, _F, _F, _I, _P]),
     "rms_norm": ("rms_norm", "ptt_rms_norm", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),

@@ -25,22 +25,32 @@
 //               p*z is rounded to dO's type before dv += (p*z)^T.dO, and ds
 //               to q's type before dk += ds^T.Q (:577, :582).
 //
-// Both take any Sq/Sk (out-of-range rows and keys contribute 0, as the
-// forward kernel's), head_dim <= 256, f32 and bf16. Tiles are widened to
-// f32 in shared memory, so products of bf16 inputs are exact and every
-// sum is f32, as the MXU's bf16-in/f32-accumulate matmul.
+// Both CUDA-core kernels take any Sq/Sk (out-of-range rows and keys
+// contribute 0, as the forward kernel's), head_dim <= 256, f32 and bf16.
+// Tiles are widened to f32 in shared memory, so products of bf16 inputs
+// are exact and every sum is f32, as the MXU's bf16-in/f32-accumulate
+// matmul.
+//
+// dk/dv has a second, bf16 tensor-core variant at head_dim 64 or 128
+// (namespace tc below; its design note is there): K and V resident in
+// shared memory, Q/dO tiles streamed by TMA through a ring, all four
+// products on wgmma with f32 accumulators in registers, P^T and dS^T
+// built on the fragments and fed back as register A operands.
+// ops/attention.py `kernel_variant` picks the variant on dtype and
+// head_dim alone; f32 stays on CUDA cores (tensor cores would take it as
+// TF32), and so does dq in this version.
 //
 // Bound on this card: at the training shape (S = 4096, D = 128, causal)
 // dq does 6 and dk/dv 8 flops per visible (q, k) pair per head dimension
-// against O(S*D) bytes, so both are bound by operations (tensor-core bf16
-// peak). These first kernels run their products on the CUDA cores (f32
-// FMA out of shared memory), an order of magnitude below that peak at
-// best: they are correct and simple, and a wgmma/TMA rewrite with the
-// score tile in registers is the work they leave on the table. Keeping
-// the S x S score and probability tiles out of device memory is what the
-// design does about bytes.
+// against O(S*D) bytes, so both are bound by operations: 989 TFLOP/s of
+// bf16 tensor-core peak (dq 0.209 ms, dk/dv 0.278 ms there). The CUDA-core
+// kernels run f32 FMA out of shared memory, ~50x above that bound (dq
+// 8.62 ms, dk/dv 14.44 ms); the tensor-core dk/dv kernel puts its products
+// on wgmma and keeps the score and probability tiles in registers, which
+// is what its design does about operations and bytes.
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -392,11 +402,306 @@ int dispatch_d(const Args& a) {
   return DKDV ? launch_dkdv<T, 256>(a) : launch_dq<T, 256>(a);
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv, bf16 tensor-core variant (head_dim 64 or 128)
+// ---------------------------------------------------------------------------
+//
+// One CTA of 384 threads per (b*hkv, 128-key tile); key tile 0, which
+// every causal q tile sees, is launched first. Warpgroup 2 is the
+// producer. It keeps 24 registers a thread and hands the rest to the two
+// consumer warpgroups (240 each): dK and dV alone take 128 f32 registers
+// a thread at D = 128, and ptxas holds a 384-thread CTA to 168. Its first
+// warp does the work: lane 0 loads the CTA's K and V tiles once (they
+// stay in shared memory) and streams each (q head g of the group, 32-row
+// q tile) through a 2-stage ring: Q and dO by TMA, lse (times log2 e) and
+// delta by the warp's 32 lanes (a TMA row of lse is 16-byte aligned only
+// when Sq % 4 == 0). A stage's "full" mbarrier takes the 32 lanes'
+// arrivals and the TMA bytes, its "empty" one the 256 consumer threads'.
+// Warps 0-7 are two consumer warpgroups, each owning 64 of the keys. Per
+// stage a warpgroup runs S^T = K.Q^T and dP^T = V.dO^T (wgmma m64n32k16,
+// both operands K-major in shared memory) and builds P^T = exp(S^T - lse)
+// on the accumulator fragments (the dropout hash keyed by that q head,
+// b*H + hkv*group + g, at each element's own (q row, key)). P^T z, rounded
+// to bf16 in registers, is at once the A operand of dV += (P^T z).dO
+// (register-A wgmma m64nDk16, dO read MN-major); while that runs,
+// dS^T = P^T (dP^T z - delta) scale is built and rounded the same way
+// and feeds dK += dS^T.Q, which reads the same Q tile MN-major. dK and dV
+// stay in f32 registers across the whole group and every q tile: the GQA
+// sum is in f32 inside the CTA, with no atomics, and a run is
+// deterministic. A warpgroup skips the products of a q tile whose rows
+// see none of its keys; causal and ragged masking runs only on tiles that
+// cross the diagonal or a sequence end. Measured on the H100 at S4096
+// (tiles of 64, then 32 q rows; dV issued before dS is built; the warp
+// index made provably uniform; dropout compiled out when off): 1.83,
+// 1.29, 1.12 and 0.89 ms.
+
+namespace tc {
+
+constexpr int BKV = 128;  // keys per CTA: two warpgroups of 64
+constexpr int BQ = 32;    // q rows per stage
+constexpr int STAGES = 2;
+constexpr int NT = 384;   // 2 consumer warpgroups + 1 producer warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+// registers a thread after the hand-over: 128 x 24 + 256 x 240 = 384 x 168,
+// the CTA's registers at launch (65536 / 384, rounded down to 8)
+constexpr uint32_t PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+template <int D>
+struct Layout {
+  static constexpr int KV_HALF = BKV * 128;  // bytes of one 64-column half of K or V
+  static constexpr int Q_HALF = BQ * 128;    // ... of a Q or dO stage
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int LSE_OFF = DO_OFF + STAGES * Q_BYTES;  // [STAGES][BQ] f32
+  static constexpr int DEL_OFF = LSE_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DEL_OFF + STAGES * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+};
+
+// DROP: dropout is a template parameter here, not a runtime flag: with
+// the hash in the loop ptxas keeps the consumers under 168 registers and
+// spills (0.89 ms without it against 1.12 ms with it, S4096 on the H100)
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int causal, float scale,
+    uint32_t seed, uint32_t thresh, float inv_keep) {
+  using L = Layout<D>;
+  namespace s9 = ptt::sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = s9::align_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* del_s = reinterpret_cast<float*>(smem + L::DEL_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bkv = blockIdx.x;
+  const int b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.y * BKV;
+  const int off = Sk - Sq;
+  // the first q tile whose last row sees this key tile (pallas.py:552)
+  const int qt0 = causal ? max(k0 - off, 0) / BQ : 0;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int per_head = n_qt - qt0;
+  const int n_tiles = group * per_head;
+  // the warp index through a shuffle from lane 0: the compiler then knows
+  // it is uniform across the warp (the role branch below relies on it)
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    s9::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      s9::mbar_init(&full[s], 32);
+      s9::mbar_init(&empty[s], 256);
+    }
+    s9::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one if/else for the two roles, never rejoined: ptxas honours
+  // setmaxnreg only then
+  if (warp >= 8) {  // the producer warpgroup; its first warp works
+    s9::reg_dealloc<PRODUCER_REGS>();
+    if (warp == 8) {
+      if (lane == 0) {
+        s9::mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+        for (int c = 0; c < D / 64; ++c) {
+          s9::tma_load_4d(smem + c * L::KV_HALF, &tm_k, kv_full, 64 * c, hk, k0, b);
+          s9::tma_load_4d(smem + L::V_OFF + c * L::KV_HALF, &tm_v, kv_full, 64 * c, hk, k0, b);
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int hq = hk * group + t / per_head;
+        const int qs0 = (qt0 + t % per_head) * BQ;
+        const long row = (long)(b * H + hq) * Sq;
+        s9::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = qs0 + r < Sq;  // rows past Sq: p = 0, ds = 0
+          lse_s[s * BQ + r] = in ? lse[row + qs0 + r] * LOG2E : INFINITY;
+          del_s[s * BQ + r] = in ? delta[row + qs0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          s9::mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES);
+          uint8_t* qd = smem + L::Q_OFF + s * L::Q_BYTES;
+          uint8_t* dd = smem + L::DO_OFF + s * L::Q_BYTES;
+          for (int c = 0; c < D / 64; ++c) {
+            s9::tma_load_4d(qd + c * L::Q_HALF, &tm_q, &full[s], 64 * c, hq, qs0, b);
+            s9::tma_load_4d(dd + c * L::Q_HALF, &tm_do, &full[s], 64 * c, hq, qs0, b);
+          }
+        } else {
+          s9::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64); this
+    // thread keys r and r + 8 of them, q rows 8 j + cq + {0, 1} of a tile
+    s9::reg_alloc<CONSUMER_REGS>();
+    const int wg = warp / 4;
+    const int kw0 = k0 + 64 * wg;
+    const int key0 = kw0 + (warp % 4) * 16 + lane / 4;
+    const int cq = (lane % 4) * 2;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t k_addr = s9::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t v_addr = s9::smem_u32(smem + L::V_OFF) + wg * 64 * 128;
+
+    float adk[D / 2], adv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) adk[j] = adv[j] = 0.f;
+
+    s9::mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      const int bhq = b * H + hk * group + t / per_head;  // the q head's hash identity (:545)
+      const int qs0 = (qt0 + t % per_head) * BQ;
+      s9::mbar_wait(&full[s], (t / STAGES) & 1);
+      if (causal && kw0 > qs0 + BQ - 1 + off) {  // no row of this tile sees these keys
+        s9::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t q_addr = s9::smem_u32(smem + L::Q_OFF + s * L::Q_BYTES);
+      const uint32_t do_addr = s9::smem_u32(smem + L::DO_OFF + s * L::Q_BYTES);
+
+      float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) st[j] = dpt[j] = 0.f;
+      s9::fence_regs(st);
+      s9::fence_regs(dpt);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
+        s9::wgmma_ss<BQ>(st, s9::desc_k(k_addr + at * L::KV_HALF + sub),
+                         s9::desc_k(q_addr + at * L::Q_HALF + sub), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
+        s9::wgmma_ss<BQ>(dpt, s9::desc_k(v_addr + at * L::KV_HALF + sub),
+                         s9::desc_k(do_addr + at * L::Q_HALF + sub), kk > 0);
+      }
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(st);
+      s9::fence_regs(dpt);
+
+      const float* ls = lse_s + s * BQ;
+      const float* ds_ = del_s + s * BQ;
+      const bool mask = qs0 + BQ > Sq || kw0 + 64 > Sk || (causal && kw0 + 63 > qs0 + off);
+      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; j += 2) {
+        float pz2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * (j / 4) + cq + e;
+          const int qpos = qs0 + col;
+          const int kpos = key0 + 8 * ((j >> 1) & 1);
+          float p = exp2f(st[j + e] * scale_log2 - ls[col]);
+          if (mask && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos + off))) p = 0.f;
+          float dp = dpt[j + e], pz = p;
+          if constexpr (DROP) {
+            const bool keep = ptt::hash_keep(seed, (uint32_t)bhq, (uint32_t)qpos, (uint32_t)kpos,
+                                             thresh);
+            const float z = keep ? inv_keep : 0.f;
+            pz = p * z;
+            dp = dp * z;
+          }
+          st[j + e] = p;
+          dpt[j + e] = dp;
+          pz2[e] = pz;
+        }
+        pa[j / 8][(j % 8) / 2] = s9::pack_bf16(pz2[0], pz2[1]);
+      }
+      s9::fence_regs(adv);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t bd = s9::desc_mn(do_addr + kk * 2048u, L::Q_HALF);
+        s9::wgmma_rs<D>(adv, pa[kk], bd, 1);
+      }
+      s9::wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < BQ / 2; j += 2) {
+        const int col = 8 * (j / 4) + cq;
+        sa[j / 8][(j % 8) / 2] = s9::pack_bf16(st[j] * (dpt[j] - ds_[col]) * scale,
+                                               st[j + 1] * (dpt[j + 1] - ds_[col + 1]) * scale);
+      }
+      s9::fence_regs(adk);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t bq = s9::desc_mn(q_addr + kk * 2048u, L::Q_HALF);
+        s9::wgmma_rs<D>(adk, sa[kk], bq, 1);
+      }
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(adv);
+      s9::fence_regs(adk);
+      s9::mbar_arrive(&empty[s]);
+    }
+
+    const long kv_step = (long)Hkv * D;
+    const long base = (long)b * Sk * kv_step + (long)hk * D + cq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = key0 + 8 * r;
+      if (kpos >= Sk) continue;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const long o = base + (long)kpos * kv_step + 8 * c;
+        const int i = 4 * c + 2 * r;
+        *reinterpret_cast<uint32_t*>(dk + o) = s9::pack_bf16(adk[i], adk[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) = s9::pack_bf16(adv[i], adv[i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkdv(const Args& a) {
+  namespace s9 = ptt::sm90;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = s9::encode_bshd(&mq, a.q, a.B, a.Sq, a.H, D, BQ);
+  if (rc == 0) rc = s9::encode_bshd(&mdo, a.dout, a.B, a.Sq, a.H, D, BQ);
+  if (rc == 0) rc = s9::encode_bshd(&mk, a.k, a.B, a.Sk, a.Hkv, D, BKV);
+  if (rc == 0) rc = s9::encode_bshd(&mv, a.v, a.B, a.Sk, a.Hkv, D, BKV);
+  if (rc != 0) return rc;
+  auto kern = a.use_drop ? flash_bwd_dkdv_tc_kernel<D, true>
+                         : flash_bwd_dkdv_tc_kernel<D, false>;
+  const int smem = Layout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.B * a.Hkv, (a.Sk + BKV - 1) / BKV);
+  kern<<<grid, NT, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta,
+                                     static_cast<__nv_bfloat16*>(a.o0),
+                                     static_cast<__nv_bfloat16*>(a.o1), a.Sq, a.Sk, a.H, a.Hkv,
+                                     a.causal, a.scale, a.seed, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// variant 0: the CUDA-core kernels; 1: the bf16 tensor-core dk/dv kernel
+// (D 64 or 128; anything else is refused). The caller chooses.
 template <bool DKDV>
-int dispatch(int dtype, const Args& a) {
+int dispatch(int dtype, int variant, const Args& a) {
   if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.Sq < 1 || a.Sk < 1 ||
       (a.causal && a.Sk < a.Sq))
     return (int)cudaErrorInvalidValue;
+  if (variant == 1) {
+    if (!DKDV || dtype != ptt::kBF16 || (a.D != 64 && a.D != 128)) return (int)cudaErrorInvalidValue;
+    return a.D == 64 ? tc::launch_dkdv<64>(a) : tc::launch_dkdv<128>(a);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kF32) return dispatch_d<float, DKDV>(a);
   if (dtype == ptt::kBF16) return dispatch_d<__nv_bfloat16, DKDV>(a);
   return (int)cudaErrorInvalidValue;
@@ -407,7 +712,8 @@ int dispatch(int dtype, const Args& a) {
 // C interface (bound with ctypes by paddle_tpu_torch/ops/kernels/build.py).
 // Returns a cudaError_t code; 0 means the launch was accepted. lse and
 // delta are f32 [B, H, Sq]; every other tensor is contiguous [B, S, H(kv), D]
-// of `dtype`.
+// of `dtype`. dk/dv's `variant` is the caller's choice of kernel
+// (ops/attention.py kernel_variant): 0 CUDA cores, 1 bf16 tensor cores.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dq, int dtype, int B,
                                 int Sq, int Sk, int H, int Hkv, int D, int causal, float scale,
@@ -416,16 +722,17 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
          nullptr, B, Sq, Sk, H, Hkv, D, causal, scale, use_drop, seed, thresh, inv_keep,
          static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, a);
+  return dispatch<false>(dtype, 0, a);
 }
 
 extern "C" int ptt_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   int dtype, int B, int Sq, int Sk, int H, int Hkv, int D,
                                   int causal, float scale, int use_drop, unsigned int seed,
-                                  unsigned int thresh, float inv_keep, void* stream) {
+                                  unsigned int thresh, float inv_keep, int variant,
+                                  void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta), dk,
          dv, B, Sq, Sk, H, Hkv, D, causal, scale, use_drop, seed, thresh, inv_keep,
          static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, a);
+  return dispatch<true>(dtype, variant, a);
 }

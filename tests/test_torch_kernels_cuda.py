@@ -109,6 +109,49 @@ def test_cuda_flash_backward_matches_plain(case):
         _assert_close(a, w, dt, floor=0.1)
 
 
+# (b, sq, sk, h, hkv, d, causal, dropout_p) of the tensor-core variant's cases
+_TC_CASES = {
+    "d128_gqa_causal": (1, 256, 256, 8, 2, 128, True, 0.0),
+    "d128_ragged_causal": (2, 300, 777, 8, 2, 128, True, 0.0),  # bottom-right offset 477
+    "d128_dropout": (1, 256, 256, 8, 2, 128, True, 0.1),
+    "d64_mha_noncausal": (2, 200, 200, 4, 4, 64, False, 0.0),
+    "d64_mha_causal_dropout": (1, 333, 333, 4, 4, 64, True, 0.1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("case", sorted(_TC_CASES))
+def test_cuda_tensor_core_flash_matches_plain(kernel, case):
+    """On the card: the bf16 tensor-core (wgmma) variants of the flash
+    forward and dk/dv, through their wrappers (one launch each), against
+    the plain versions on the same inputs, with GQA, ragged tails,
+    bottom-right causal and dropout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    b, sq, sk, h, hkv, d, causal, p = _TC_CASES[case]
+    assert ta.kernel_variant(kernel, torch.bfloat16, d) == "wgmma"
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d), rn(b, sq, h, d)
+    scale = 1.0 / math.sqrt(d)
+    before = dict(ta.LAUNCHES)
+    out, lse = ta.flash_attention_bshd_lse(q, k, v, causal=causal, dropout_p=p, dropout_seed=9)
+    if kernel == "flash_fwd":
+        want, lse_w = ta._flash_plain(q, k, v, causal, scale, p, 9)
+        _assert_close(out, want, torch.bfloat16)
+        torch.testing.assert_close(lse, lse_w, rtol=1e-4, atol=1e-4)
+    else:
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, causal, scale, p, 9)
+        got = ta._flash_bwd_dkdv_cuda(*args)
+        want = ta._flash_bwd_plain(*args)[1:]
+        for a, w in zip(got, want):
+            _assert_close(a, w, torch.bfloat16, floor=0.1)
+    assert ta.LAUNCHES[kernel] == before[kernel] + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m2", [torch.float32, torch.bfloat16])
 def test_cuda_fused_adamw_matches_plain(m2):

@@ -167,3 +167,21 @@ def test_tiny_llama_training_matches_jax(fused, amp):
     assert d.max() <= max_over_lr * lr and d.mean() <= mean_over_lr * lr, (d.max() / lr,
                                                                            d.mean() / lr)
     assert lt[-1] < lt[0]
+
+
+def test_rope_tables_built_while_serving_train_later():
+    """The RoPE tables are cached per shape and device. When the serving
+    engine (under torch.inference_mode) builds them first, a training
+    step in the same process must still be able to save them for its
+    backward."""
+    tllama._rope_tables_on.cache_clear()
+    rng = np.random.RandomState(7)
+    q, k = (torch.from_numpy(rng.randn(1, 24, 2, 16).astype(np.float32)) for _ in range(2))
+    with torch.inference_mode():
+        served, _ = tllama._rope(q, k)
+    qg = q.clone().requires_grad_(True)
+    out, _ = tllama._rope(qg, k)
+    out.square().sum().backward()
+    torch.testing.assert_close(out.detach(), served, rtol=0, atol=0)
+    # a rotation of each pair keeps the norm: d/dq sum(rope(q)^2) = 2 q
+    torch.testing.assert_close(qg.grad, 2 * q, rtol=1e-5, atol=1e-5)
