@@ -17,10 +17,11 @@ Phases, one line each (any failure raises and exits non-zero):
   predictor_f32  save_llm -> Config -> create_predictor().run() at full width,
                  1 layer, f32: ids equal the no-cache greedy oracle
   train_parity   two tiny Llamas (head_dim 16: the CUDA-core flash kernels;
-                 head_dim 64: the tensor-core ones), each built twice from one
-                 set of weights, on the card (kernels) and on the CPU (plain
-                 versions): 2 AMP-O1 AdamW steps with FLAGS_fused_optimizer and
-                 a bf16 moment2 under the same stochastic-rounding seeds;
+                 head_dim 64: the tensor-core forward, dq and dk/dv), each
+                 built twice from one set of weights, on the card (kernels)
+                 and on the CPU (plain versions): 2 AMP-O1 AdamW steps with
+                 FLAGS_fused_optimizer and a bf16 moment2 under the same
+                 stochastic-rounding seeds;
                  losses, step-1 grads and the params after step 2 agree
   train_bf16     Llama-3-8B layer width at 4 layers, seq 4096, batch 1, AMP
                  O1 bf16, fused AdamW with a bf16 moment2: 5 steps on one
@@ -69,7 +70,7 @@ LLAMA3_8B = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
 TRAIN_LAYERS, TRAIN_SEQ = 4, 4096
 TINY_LLAMA = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                   num_key_value_heads=2, intermediate_size=176)
-# head_dim 64: the bf16 flash forward and dk/dv take their tensor-core
+# head_dim 64: the bf16 flash forward, dq and dk/dv take their tensor-core
 # variants (head_dim 16 above takes the CUDA-core ones)
 TINY_LLAMA_D64 = dict(TINY_LLAMA, hidden_size=256, intermediate_size=704)
 
@@ -153,7 +154,9 @@ def ptxas_summary(nvcc_log: str) -> list:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
             out.append(f"{name}: {regs} registers, {spill}")
         elif "(C7" in ln:  # ptxas performance warnings, e.g. serialized wgmma
-            out.append(ln.split(":", 1)[1].strip()[:120])
+            fn = re.search(r"function '(\w+)'", ln)
+            out.append((f"{_kernel_name(fn.group(1))}: " if fn else "")
+                       + ln.split(":", 1)[1].strip()[:120])
     return out
 
 
@@ -172,6 +175,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph, replayed `iters` times. For calls of tens of microseconds, whose
+    eager time is the host's Python and launch overhead, not the card's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, iters=iters, warmup=1) / reps
+    del graph
+    return ms
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
@@ -532,6 +554,18 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     bnd_kv, by_kv = bound_ms(8.0 * pairs * d, nbytes(q, k, v, do, lse, delta, k, v), dtype)
     dq_rec = dict(max_abs_err=rec["dq"]["max_abs_err"], ms=time_ms(lambda: ta._flash_bwd_dq_cuda(*args)),
                   bound_ms=bnd_dq, bound_by=by_dq, variant=rec["variant"]["flash_bwd_dq"], **common)
+    if dq_rec["variant"] != "cuda_core":
+        # the earlier (CUDA-core) dq kernel on the same inputs, straight through
+        # its C entry point (variant 0), outside the wrapper and its count
+        from paddle_tpu_torch.ops.kernels import build
+        use_drop = dropout_p > 0.0
+        cc_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dq_out.data_ptr(), 1, b, sq, sk, h, hkv, d, int(causal),
+                   scale, int(use_drop), seed, ta._keep_threshold(dropout_p) if use_drop else 0,
+                   1.0 / (1.0 - dropout_p), 0)
+        dq_rec["cuda_core_ms"] = time_ms(lambda: build.check(build.function("flash_bwd_dq")(
+            *cc_args, torch.cuda.current_stream().cuda_stream), "flash_bwd_dq (CUDA core)"),
+            iters=5, warmup=1)
     kv_rec = dict(max_abs_err=max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"]),
                   ms=time_ms(lambda: ta._flash_bwd_dkdv_cuda(*args)), bound_ms=bnd_kv,
                   bound_by=by_kv, variant=rec["variant"]["flash_bwd_dkdv"], **common)
@@ -703,11 +737,14 @@ def check_rms_norm(IF, gen, name, r, d, dtype, bias, w_dtype=None, timed=False):
         # a weight of another dtype than x takes torch's unfused rms_norm, which warns
         warnings.filterwarnings("ignore", message="Mismatch dtype between input and weight")
         bnd, by = bound_ms(4.0 * r * d, nbytes(x, w, got) + (nbytes(b) if bias else 0), dtype)
-        rec.update(ms=time_ms(lambda: IF.fused_rms_norm(x, w, b, epsilon=1e-6)),
+        kern = lambda: IF.fused_rms_norm(x, w, b, epsilon=1e-6)
+        lib = None if bias else (lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6))
+        # ms and library_ms: device time (CUDA graph); *_eager_ms: one call
+        # from Python at a time, the host's overhead included
+        rec.update(ms=time_graph_ms(kern), eager_ms=time_ms(kern),
                    plain_ms=time_ms(lambda: IF._rms_norm_ref(x, w, b, 1e-6)),
-                   library_ms=None if bias else time_ms(
-                       lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6)),
-                   bound_ms=bnd, bound_by=by)
+                   library_ms=lib and time_graph_ms(lib),
+                   library_eager_ms=lib and time_ms(lib), bound_ms=bnd, bound_by=by)
     log("kernel rms_norm", **rec)
     return rec
 
@@ -964,6 +1001,8 @@ def main(argv=None) -> int:
             torch.bfloat16, True, timed=True)
         check_flash_bwd(ta, gen, "bf16 causal B1 Sq300 Sk777 H32/8 D128 (ragged tiles)", 1, 300,
                         777, 32, 8, 128, bf, True)
+        check_flash_bwd(ta, gen, "bf16 causal B1 Sq301 Sk777 H32/8 D128 (Sq % 4 != 0)", 1, 301,
+                        777, 32, 8, 128, bf, True)
         check_flash_bwd(ta, gen, "bf16 causal B2 S2048 H32/8 D128", 2, 2048, 2048, 32, 8, 128, bf,
                         True)
         check_flash_bwd(ta, gen, "bf16 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
@@ -973,6 +1012,8 @@ def main(argv=None) -> int:
         for causal in (True, False):
             check_flash_bwd(ta, gen, f"bf16 {'causal' if causal else 'non-causal'} B2 S512 H12/12 "
                             "D64 (ERNIE heads)", 2, 512, 512, 12, 12, 64, bf, causal, timed=causal)
+        check_flash_bwd(ta, gen, "bf16 dropout p=0.1 B1 S333 H4/4 D64 causal", 1, 333, 333, 4, 4, 64,
+                        bf, True, dropout_p=0.1)
         check_flash_bwd(ta, gen, "bf16 causal S256 H8/2 D96 (a head dim of the CUDA-core variant "
                         "only)", 1, 256, 256, 8, 2, 96, bf, True)
         check_flash_bwd(ta, gen, "f32 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
@@ -996,13 +1037,18 @@ def main(argv=None) -> int:
                            n_large, starts=[2 ** 31 - ADAMW_SLICE // 2, 2 ** 31 + ADAMW_SLICE // 2,
                                             fo.pad_to_tile(n_large) - ADAMW_SLICE])
         torch.cuda.empty_cache()
-        records["rms_norm"] = check_rms_norm(
-            IF, gen, "bf16 R4096 D4096, f32 weight (the entry point's types)", 4096, 4096,
-            torch.bfloat16, False, w_dtype=torch.float32, timed=True)
-        check_rms_norm(IF, gen, "bf16 R4096 D4096", 4096, 4096, torch.bfloat16, False, timed=True)
+        rms = [check_rms_norm(IF, gen, "bf16 R4096 D4096, f32 weight (the entry point's types)",
+                              4096, 4096, torch.bfloat16, False, w_dtype=torch.float32, timed=True),
+               check_rms_norm(IF, gen, "bf16 R4096 D4096", 4096, 4096, torch.bfloat16, False,
+                              timed=True)]
+        records["rms_norm"] = dict(rms[0], by_shape=[
+            {k: r[k] for k in ("case", "ms", "eager_ms", "plain_ms", "library_ms",
+                               "library_eager_ms", "bound_ms", "max_abs_err")} for r in rms])
         check_rms_norm(IF, gen, "bf16 R4096 D4096 bias", 4096, 4096, torch.bfloat16, True, timed=True)
         check_rms_norm(IF, gen, "f32 R4096 D4096", 4096, 4096, torch.float32, False)
         check_rms_norm(IF, gen, "bf16 R333 D1032 (ragged R)", 333, 1032, torch.bfloat16, True)
+        check_rms_norm(IF, gen, "bf16 R64 D16392 bias (wide rows)", 64, 16392, torch.bfloat16,
+                       True)
         torch.cuda.empty_cache()
     if "serve_bf16" in phases:
         model = serve_bf16(ptt, ta, state)

@@ -31,7 +31,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # ---------------------------------------------------------------------------
 
 # kernels with a bf16 tensor-core (wgmma) variant, and the head dims it takes
-TC_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+TC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
 TC_HEAD_DIMS = (64, 128)
 _VARIANT_CODE = {"cuda_core": 0, "wgmma": 1}
 
@@ -268,14 +268,12 @@ def _bwd_launch(fn_name, outs, q, k, v, do, lse, delta, causal, scale, dropout_p
     variant = kernel_variant(fn_name, q.dtype, d)
     if variant == "wgmma":
         _check_tc_operands(fn_name, (("q", q), ("k", k), ("v", v), ("dout", do)))
-    # dq's entry point has no variant argument: it has one kernel
-    extra = (_VARIANT_CODE[variant],) if fn_name in TC_KERNELS else ()
     rc = build.function(fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *(t.data_ptr() for t in outs), _DTYPE_CODE[q.dtype], b, sq, sk, h, hkv, d, int(causal),
         float(scale), int(use_drop), int(seed) & _M32,
         _keep_threshold(dropout_p) if use_drop else 0,
-        float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, *extra,
+        float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, _VARIANT_CODE[variant],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, fn_name)
     LAUNCHES[fn_name] += 1

@@ -19,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
@@ -49,7 +49,7 @@ _SIGNATURES = {
                    _P]),
     "paged_attn": ("paged_attn", "ptt_paged_attn",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD + [_P]),
+    "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD + [_I, _P]),
     "flash_bwd_dkdv": ("flash_bwd", "ptt_flash_bwd_dkdv", [_P] * 8 + _BWD + [_I, _P]),
     "fused_adamw": ("fused_adamw", "ptt_fused_adamw",
                     [_P, _P, _P, _P, _P, _L, _I, _I, _I, _U, _F, _F, _F, _F, _F, _F, _I, _P]),
@@ -79,6 +79,12 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(src: Path, out: Path, defines: Optional[Dict[str, int]] = None) -> subprocess.Popen:
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in (defines or {}).items()),
+           "-I", str(_HERE), "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build(force: bool = False) -> Dict[str, str]:
     """Compile every kernel library that is missing (all in parallel).
     Returns {name: nvcc output} for the libraries compiled by this call;
@@ -89,13 +95,10 @@ def build(force: bool = False) -> Dict[str, str]:
         todo = {n: p for n, p in todo.items() if not p.exists()}
     if not todo:
         return {}
-    nvcc = nvcc_path()
     procs = {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_HERE), "-o", str(tmp), str(_HERE / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, path)
+        procs[name] = (_nvcc(_HERE / SOURCES[name], tmp), tmp, path)
     logs, failed = {}, []
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
@@ -124,12 +127,42 @@ def function(name: str):
             build()
             libs = {n: ctypes.CDLL(str(_library_path(n))) for n in SOURCES}
             _libraries.extend(libs.values())
-            for fname, (lib, sym, argtypes) in _SIGNATURES.items():
-                f = getattr(libs[lib], sym)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-                _functions[fname] = f
+            for fname, (lib, _, _) in _SIGNATURES.items():
+                _functions[fname] = bind(libs[lib], fname)
     return _functions[name]
+
+
+def bind(lib: ctypes.CDLL, name: str):
+    """Kernel `name`'s C entry point in `lib`, with its argument types."""
+    _, sym, argtypes = _SIGNATURES[name]
+    f = getattr(lib, sym)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def build_variants(name: str, variants: Dict[str, tuple]) -> Dict[str, tuple]:
+    """Library `name` compiled once more for each design variant, all in
+    parallel, into _build/variants/: `variants` maps a label to (source,
+    {macro: value}), the source None for this directory's own or the path
+    of another source with the same C interface (an earlier commit's).
+    Returns {label: (ctypes.CDLL, nvcc output)}. For comparing designs on
+    the card (cuda_kernel_variants.py); the package itself uses
+    `function`."""
+    out_dir = BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (label, (src, defines)) in enumerate(variants.items()):
+        so = out_dir / f"{name}-{os.getpid()}-{i}.so"
+        procs[label] = (_nvcc(Path(src) if src else _HERE / SOURCES[name], so, defines), so)
+    out = {}
+    for label, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} variant {label!r}:\n{log}")
+        out[label] = (ctypes.CDLL(str(so)), log)
+    _libraries.extend(lib for lib, _ in out.values())
+    return out
 
 
 def check(rc: int, name: str) -> None:

@@ -31,23 +31,25 @@
 // are exact and every sum is f32, as the MXU's bf16-in/f32-accumulate
 // matmul.
 //
-// dk/dv has a second, bf16 tensor-core variant at head_dim 64 or 128
-// (namespace tc below; its design note is there): K and V resident in
-// shared memory, Q/dO tiles streamed by TMA through a ring, all four
-// products on wgmma with f32 accumulators in registers, P^T and dS^T
-// built on the fragments and fed back as register A operands.
+// Both have a second, bf16 tensor-core variant at head_dim 64 or 128
+// (namespace tc below; the design notes are there). dk/dv: K and V
+// resident in shared memory, Q/dO tiles streamed by TMA through a ring,
+// all four products on wgmma with f32 accumulators in registers, P^T and
+// dS^T built on the fragments and fed back as register A operands. dq:
+// Q and dO resident, K/V tiles streamed, S and dP on wgmma, dS built on
+// the fragments and fed back as the A operand of dQ += dS.K.
 // ops/attention.py `kernel_variant` picks the variant on dtype and
 // head_dim alone; f32 stays on CUDA cores (tensor cores would take it as
-// TF32), and so does dq in this version.
+// TF32).
 //
 // Bound on this card: at the training shape (S = 4096, D = 128, causal)
 // dq does 6 and dk/dv 8 flops per visible (q, k) pair per head dimension
 // against O(S*D) bytes, so both are bound by operations: 989 TFLOP/s of
 // bf16 tensor-core peak (dq 0.209 ms, dk/dv 0.278 ms there). The CUDA-core
-// kernels run f32 FMA out of shared memory, ~50x above that bound (dq
-// 8.62 ms, dk/dv 14.44 ms); the tensor-core dk/dv kernel puts its products
-// on wgmma and keeps the score and probability tiles in registers, which
-// is what its design does about operations and bytes.
+// kernels run f32 FMA out of shared memory, ~40-50x above that bound (dq
+// 8.6 ms, dk/dv 14.44 ms); the tensor-core kernels put their products on
+// wgmma and keep the score and probability tiles in registers, which is
+// what their design does about operations and bytes.
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -688,18 +690,256 @@ int launch_dkdv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dq, bf16 tensor-core variant (head_dim 64 or 128)
+// ---------------------------------------------------------------------------
+//
+// One CTA of 384 threads per (b*h, 128-row q tile), the heaviest causal
+// tiles launched first (blockIdx.y counts q tiles from the last, as the
+// forward). Warpgroup 2 is the producer, with 24 registers a thread; its
+// first lane loads the CTA's Q and dO tiles once by TMA (they stay in
+// shared memory) and streams the K and V tiles of kv head h / group
+// through a 3-stage ring ("full": the TMA bytes; "empty": the 256
+// consumer arrivals), zero-filled past Sk. Warps 0-7 are two consumer
+// warpgroups, each owning 64 q rows, with 240 registers a thread. Per key
+// tile a warpgroup runs S = Q.K^T and dP = dO.V^T (wgmma m64nKk16, both
+// operands K-major in shared memory), builds p = exp2(S scale log2 e -
+// lse log2 e) on the accumulator fragments, dP z under dropout (the hash
+// keyed by the q head b*H + h, the forward's key, at each element's own
+// (q row, key)), and dS = p (dP z - delta) scale rounded to bf16 in
+// registers, where it is already the A fragment of dQ += dS.K (register-A
+// wgmma m64nDk16), which reads the same K tile MN-major. dQ stays in f32
+// registers across every key tile and is written once: the CTA owns its
+// rows, with no atomics, and a run is deterministic. lse and delta are
+// constant per row: each thread loads its two rows' values into registers
+// once (no TMA row of lse, so no alignment condition on Sq). Masking runs
+// only on tiles that cross the causal diagonal or Sk; rows past Sq take
+// lse = +inf, so p = 0 there.
+
+// Keys per stage and the ring's depth: cuda_kernel_variants.py builds
+// other values (-DPTT_DQ_KEYS=128 -DPTT_DQ_STAGES=2) to compare them.
+#ifndef PTT_DQ_KEYS
+#define PTT_DQ_KEYS 64
+#endif
+#ifndef PTT_DQ_STAGES
+#define PTT_DQ_STAGES 3
+#endif
+constexpr int DQ_ROWS = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int DQ_KEYS = PTT_DQ_KEYS;
+constexpr int DQ_STAGES = PTT_DQ_STAGES;
+
+template <int D>
+struct DqLayout {
+  static constexpr int Q_HALF = DQ_ROWS * 128;   // bytes of one 64-column half of Q or dO
+  static constexpr int KV_HALF = DQ_KEYS * 128;  // ... of a K or V stage
+  static constexpr int Q_BYTES = DQ_ROWS * D * 2;
+  static constexpr int KV_BYTES = DQ_KEYS * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + DQ_STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + 1024;  // + alignment slack
+};
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    int Sq, int Sk, int H, int Hkv, int causal, float scale, uint32_t seed, uint32_t thresh,
+    float inv_keep) {
+  using L = DqLayout<D>;
+  namespace s9 = ptt::sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = s9::align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int bh = blockIdx.x;  // the q head: the dropout hash's identity (pallas.py:490)
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_ROWS;  // heaviest causal tile first
+  const int off = Sk - Sq;                                // causal bottom-right alignment
+  const int n_k = (Sk + DQ_KEYS - 1) / DQ_KEYS;
+  const int last_row = min(q0 + DQ_ROWS, Sq) - 1;
+  const int kmax = causal ? min(n_k, (last_row + off) / DQ_KEYS + 1) : n_k;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    s9::mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      s9::mbar_init(&full[s], 1);
+      s9::mbar_init(&empty[s], 256);
+    }
+    s9::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one if/else for the two roles, never rejoined (setmaxnreg)
+  if (warp >= 8) {
+    s9::reg_dealloc<PRODUCER_REGS>();
+    if (warp == 8 && lane == 0) {
+      s9::mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        s9::tma_load_4d(smem + c * L::Q_HALF, &tm_q, q_full, 64 * c, h, q0, b);
+        s9::tma_load_4d(smem + L::DO_OFF + c * L::Q_HALF, &tm_do, q_full, 64 * c, h, q0, b);
+      }
+      for (int i = 0; i < kmax; ++i) {
+        const int s = i % DQ_STAGES;
+        s9::mbar_wait(&empty[s], ((i / DQ_STAGES) & 1) ^ 1);
+        s9::mbar_arrive_expect_tx(&full[s], 2 * L::KV_BYTES);
+        uint8_t* kd = smem + L::K_OFF + s * L::KV_BYTES;
+        uint8_t* vd = smem + L::V_OFF + s * L::KV_BYTES;
+        for (int c = 0; c < D / 64; ++c) {
+          s9::tma_load_4d(kd + c * L::KV_HALF, &tm_k, &full[s], 64 * c, hk, i * DQ_KEYS, b);
+          s9::tma_load_4d(vd + c * L::KV_HALF, &tm_v, &full[s], 64 * c, hk, i * DQ_KEYS, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows [qw0, qw0 + 64); this thread rows
+    // r and r + 8 of them, keys 8 j + cq + {0, 1} of a tile
+    s9::reg_alloc<CONSUMER_REGS>();
+    const int wg = warp / 4;
+    const int qw0 = q0 + 64 * wg;
+    const int row0 = qw0 + (warp % 4) * 16 + lane / 4;
+    const int cq = (lane % 4) * 2;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t q_addr = s9::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t do_addr = s9::smem_u32(smem + L::DO_OFF) + wg * 64 * 128;
+    float lse2[2], dl[2];  // this thread's rows: lse log2 e and delta
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      const bool in = qpos < Sq;
+      lse2[r] = in ? lse[(long)bh * Sq + qpos] * LOG2E : INFINITY;
+      dl[r] = in ? delta[(long)bh * Sq + qpos] : 0.f;
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+
+    s9::mbar_wait(q_full, 0);
+    for (int i = 0; i < kmax; ++i) {
+      const int s = i % DQ_STAGES;
+      const int k0 = i * DQ_KEYS;
+      s9::mbar_wait(&full[s], (i / DQ_STAGES) & 1);
+      if (qw0 >= Sq || (causal && k0 > qw0 + 63 + off)) {  // no row here sees these keys
+        s9::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const uint32_t k_addr = s9::smem_u32(smem + L::K_OFF + s * L::KV_BYTES);
+      const uint32_t v_addr = s9::smem_u32(smem + L::V_OFF + s * L::KV_BYTES);
+
+      float sc[DQ_KEYS / 2], dp[DQ_KEYS / 2];
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 2; ++j) sc[j] = dp[j] = 0.f;
+      s9::fence_regs(sc);
+      s9::fence_regs(dp);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
+        s9::wgmma_ss<DQ_KEYS>(sc, s9::desc_k(q_addr + at * L::Q_HALF + sub),
+                              s9::desc_k(k_addr + at * L::KV_HALF + sub), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
+        s9::wgmma_ss<DQ_KEYS>(dp, s9::desc_k(do_addr + at * L::Q_HALF + sub),
+                              s9::desc_k(v_addr + at * L::KV_HALF + sub), kk > 0);
+      }
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(sc);
+      s9::fence_regs(dp);
+
+      const bool mask = k0 + DQ_KEYS > Sk || (causal && k0 + DQ_KEYS - 1 > qw0 + off);
+      uint32_t sa[DQ_KEYS / 16][4];
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 2; j += 2) {
+        const int r = (j >> 1) & 1;
+        const int qpos = row0 + 8 * r;
+        float ds2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * (j / 4) + cq + e;
+          float p = exp2f(sc[j + e] * scale_log2 - lse2[r]);
+          if (mask && (kpos >= Sk || (causal && kpos > qpos + off))) p = 0.f;
+          float d = dp[j + e];
+          if constexpr (DROP) {
+            const bool keep = ptt::hash_keep(seed, (uint32_t)bh, (uint32_t)qpos, (uint32_t)kpos,
+                                             thresh);
+            d = keep ? d * inv_keep : 0.f;
+          }
+          ds2[e] = p * (d - dl[r]) * scale;
+        }
+        sa[j / 8][(j % 8) / 2] = s9::pack_bf16(ds2[0], ds2[1]);  // ds in k's type (:520)
+      }
+      s9::fence_regs(acc);
+      s9::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
+        const uint64_t bk = s9::desc_mn(k_addr + kk * 2048u, L::KV_HALF);
+        s9::wgmma_rs<D>(acc, sa[kk], bk, 1);
+      }
+      s9::wgmma_commit();
+      s9::wgmma_wait<0>();
+      s9::fence_regs(acc);
+      s9::mbar_arrive(&empty[s]);
+    }
+
+    const long q_step = (long)H * D;
+    __nv_bfloat16* db = dq + (long)b * Sq * q_step + (long)h * D + cq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      if (qpos >= Sq) continue;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const int i = 4 * c + 2 * r;
+        *reinterpret_cast<uint32_t*>(db + (long)qpos * q_step + 8 * c) =
+            s9::pack_bf16(acc[i], acc[i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dq(const Args& a) {
+  namespace s9 = ptt::sm90;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = s9::encode_bshd(&mq, a.q, a.B, a.Sq, a.H, D, DQ_ROWS);
+  if (rc == 0) rc = s9::encode_bshd(&mdo, a.dout, a.B, a.Sq, a.H, D, DQ_ROWS);
+  if (rc == 0) rc = s9::encode_bshd(&mk, a.k, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
+  if (rc == 0) rc = s9::encode_bshd(&mv, a.v, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
+  if (rc != 0) return rc;
+  auto kern = a.use_drop ? flash_bwd_dq_tc_kernel<D, true> : flash_bwd_dq_tc_kernel<D, false>;
+  const int smem = DqLayout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.B * a.H, (a.Sq + DQ_ROWS - 1) / DQ_ROWS);
+  kern<<<grid, NT, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta,
+                                     static_cast<__nv_bfloat16*>(a.o0), a.Sq, a.Sk, a.H, a.Hkv,
+                                     a.causal, a.scale, a.seed, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
-// variant 0: the CUDA-core kernels; 1: the bf16 tensor-core dk/dv kernel
-// (D 64 or 128; anything else is refused). The caller chooses.
+// variant 0: the CUDA-core kernels; 1: the bf16 tensor-core kernels (D 64
+// or 128; anything else is refused). The caller chooses.
 template <bool DKDV>
 int dispatch(int dtype, int variant, const Args& a) {
   if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.Sq < 1 || a.Sk < 1 ||
       (a.causal && a.Sk < a.Sq))
     return (int)cudaErrorInvalidValue;
   if (variant == 1) {
-    if (!DKDV || dtype != ptt::kBF16 || (a.D != 64 && a.D != 128)) return (int)cudaErrorInvalidValue;
-    return a.D == 64 ? tc::launch_dkdv<64>(a) : tc::launch_dkdv<128>(a);
+    if (dtype != ptt::kBF16 || (a.D != 64 && a.D != 128)) return (int)cudaErrorInvalidValue;
+    if (DKDV) return a.D == 64 ? tc::launch_dkdv<64>(a) : tc::launch_dkdv<128>(a);
+    return a.D == 64 ? tc::launch_dq<64>(a) : tc::launch_dq<128>(a);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kF32) return dispatch_d<float, DKDV>(a);
@@ -712,17 +952,17 @@ int dispatch(int dtype, int variant, const Args& a) {
 // C interface (bound with ctypes by paddle_tpu_torch/ops/kernels/build.py).
 // Returns a cudaError_t code; 0 means the launch was accepted. lse and
 // delta are f32 [B, H, Sq]; every other tensor is contiguous [B, S, H(kv), D]
-// of `dtype`. dk/dv's `variant` is the caller's choice of kernel
-// (ops/attention.py kernel_variant): 0 CUDA cores, 1 bf16 tensor cores.
+// of `dtype`. `variant` is the caller's choice of kernel (ops/attention.py
+// kernel_variant): 0 CUDA cores, 1 bf16 tensor cores.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dq, int dtype, int B,
                                 int Sq, int Sk, int H, int Hkv, int D, int causal, float scale,
                                 int use_drop, unsigned int seed, unsigned int thresh,
-                                float inv_keep, void* stream) {
+                                float inv_keep, int variant, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
          nullptr, B, Sq, Sk, H, Hkv, D, causal, scale, use_drop, seed, thresh, inv_keep,
          static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, 0, a);
+  return dispatch<false>(dtype, variant, a);
 }
 
 extern "C" int ptt_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,

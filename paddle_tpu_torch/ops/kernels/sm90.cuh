@@ -10,9 +10,10 @@
 //     S = Q.K^T, dP = dO.V^T): 8-row groups 1024 bytes apart (SBO); the
 //     k-th 16-value step of a half starts 32 * k bytes into it.
 //   MN-major operand (the reduction runs down the rows: V in P.V, dO and
-//     Q in dV = P^T.dO, dK = dS^T.Q), read with the transpose bit: 8-row
-//     groups 1024 bytes apart (SBO), the second 64-column half LBO bytes
-//     after the first; the k-th 16-row step starts 2048 * k bytes in.
+//     Q in dV = P^T.dO, dK = dS^T.Q, K in dQ = dS.K), read with the
+//     transpose bit: 8-row groups 1024 bytes apart (SBO), the second
+//     64-column half LBO bytes after the first; the k-th 16-row step
+//     starts 2048 * k bytes in.
 //
 // wgmma m64nNk16 accumulator fragment (the layout every kernel here
 // relies on): thread t of a warpgroup (warp w = t / 32, lane l) holds
@@ -158,6 +159,22 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                              int accumulate) {
@@ -223,12 +240,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // the instructions above by width N (a compile-time constant)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
   else wgmma_ss_n128(d, da, db, acc);
 }
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int acc) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
   else wgmma_rs_n128(d, a, db, acc);
 }

@@ -67,6 +67,8 @@ def test_flash_bwd_matches_interpret_kernels(interpret, sq, sk, h, hkv, causal, 
     (40, 72, 4, 2, True, 0.0),    # ragged lengths the JAX kernel never takes
     (48, 48, 2, 2, False, 0.25),  # dropout, non-causal
     (33, 33, 6, 3, True, 0.1),    # odd length, group 2, dropout
+    (100, 237, 4, 2, True, 0.0),  # causal cross length off the dq kernel's 128-row, 64-key tiles
+    (77, 141, 4, 1, True, 0.1),   # the same with MQA and dropout
 ])
 def test_flash_bwd_matches_jax_reference_vjp(sq, sk, h, hkv, causal, dropout_p):
     q, k, v, g, _ = _inputs(sq * 7 + h, 2, sq, sk, h, hkv, 16)

@@ -3,8 +3,8 @@ C entry points. CPU only: nothing here builds or launches a kernel.
 
 `ops.attention.kernel_variant` is the one place the choice is made, on
 dtype and head dim alone: bf16 at head dim 64 or 128 takes the tensor-core
-(wgmma) kernels of the flash forward and dk/dv; everything else, and dq,
-the CUDA-core kernels."""
+(wgmma) kernels of the flash forward, dq and dk/dv; everything else the
+CUDA-core kernels."""
 import ctypes
 import re
 from pathlib import Path
@@ -25,13 +25,13 @@ _KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
     (torch.float32, 64), (torch.float32, 128),                   # f32 never takes TF32
 ])
 def test_kernel_variant_rule(kernel, dtype, head_dim):
-    tc = kernel != "flash_bwd_dq" and dtype == torch.bfloat16 and head_dim in (64, 128)
+    tc = dtype == torch.bfloat16 and head_dim in (64, 128)
     assert ta.kernel_variant(kernel, dtype, head_dim) == ("wgmma" if tc else "cuda_core")
 
 
 def test_kernel_variant_takes_no_other_input():
     """The rule reads dtype and head dim only: no flag or environment."""
-    assert ta.TC_KERNELS == ("flash_fwd", "flash_bwd_dkdv")
+    assert ta.TC_KERNELS == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
     assert ta.TC_HEAD_DIMS == (64, 128)
     assert set(ta._VARIANT_CODE) == {"cuda_core", "wgmma"}
 

@@ -113,6 +113,7 @@ def test_cuda_flash_backward_matches_plain(case):
 _TC_CASES = {
     "d128_gqa_causal": (1, 256, 256, 8, 2, 128, True, 0.0),
     "d128_ragged_causal": (2, 300, 777, 8, 2, 128, True, 0.0),  # bottom-right offset 477
+    "d128_sq_odd_causal": (1, 301, 777, 8, 2, 128, True, 0.0),  # Sq % 4 != 0: lse rows unaligned
     "d128_dropout": (1, 256, 256, 8, 2, 128, True, 0.1),
     "d64_mha_noncausal": (2, 200, 200, 4, 4, 64, False, 0.0),
     "d64_mha_causal_dropout": (1, 333, 333, 4, 4, 64, True, 0.1),
@@ -120,11 +121,11 @@ _TC_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"])
 @pytest.mark.parametrize("case", sorted(_TC_CASES))
 def test_cuda_tensor_core_flash_matches_plain(kernel, case):
     """On the card: the bf16 tensor-core (wgmma) variants of the flash
-    forward and dk/dv, through their wrappers (one launch each), against
+    forward, dq and dk/dv, through their wrappers (one launch each), against
     the plain versions on the same inputs, with GQA, ragged tails,
     bottom-right causal and dropout."""
     if not torch.cuda.is_available():
@@ -145,8 +146,10 @@ def test_cuda_tensor_core_flash_matches_plain(kernel, case):
     else:
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, do, lse, delta, causal, scale, p, 9)
-        got = ta._flash_bwd_dkdv_cuda(*args)
-        want = ta._flash_bwd_plain(*args)[1:]
+        if kernel == "flash_bwd_dq":
+            got, want = (ta._flash_bwd_dq_cuda(*args),), ta._flash_bwd_plain(*args)[:1]
+        else:
+            got, want = ta._flash_bwd_dkdv_cuda(*args), ta._flash_bwd_plain(*args)[1:]
         for a, w in zip(got, want):
             _assert_close(a, w, torch.bfloat16, floor=0.1)
     assert ta.LAUNCHES[kernel] == before[kernel] + 1
@@ -187,17 +190,26 @@ def test_cuda_fused_adamw_matches_plain(m2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt,bias", [(torch.bfloat16, True), (torch.float32, False)])
-def test_cuda_rms_norm_matches_plain(dt, bias):
+@pytest.mark.parametrize("dt,bias,wdt,r,d", [
+    (torch.bfloat16, True, torch.bfloat16, 333, 1032),
+    (torch.float32, False, torch.float32, 333, 1032),
+    (torch.bfloat16, False, torch.bfloat16, 1000, 4096),   # Llama-3 width, bf16 weight
+    (torch.bfloat16, False, torch.float32, 1000, 4096),    # the entry point's mixed types
+    (torch.float32, True, torch.bfloat16, 100, 8192),      # f32 x with a bf16 weight and bias
+    (torch.bfloat16, True, torch.bfloat16, 40, 16392),     # wide rows, D % 64 != 0
+])
+def test_cuda_rms_norm_matches_plain(dt, bias, wdt, r, d):
+    """On the card: the RMSNorm wrapper (one kernel launch) against the
+    plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
     from paddle_tpu_torch.incubate.nn import functional as IF
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn(333, 1032, generator=g, device=dev).to(dt)
-    w = (1 + 0.1 * torch.randn(1032, generator=g, device=dev)).to(dt)
-    b = (0.1 * torch.randn(1032, generator=g, device=dev)).to(dt) if bias else None
+    x = torch.randn(r, d, generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(wdt)
+    b = (0.1 * torch.randn(d, generator=g, device=dev)).to(wdt) if bias else None
     before = IF.LAUNCHES["rms_norm"]
     got = IF.fused_rms_norm(x, w, b)
     assert IF.LAUNCHES["rms_norm"] == before + 1

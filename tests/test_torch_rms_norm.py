@@ -54,6 +54,10 @@ def test_fused_rms_norm_matches_interpret_kernel(interpret_pallas, bias):
     ((7, 24), True, np.float32),       # ragged rows, D not a multiple of 128
     ((3, 5, 32), False, np.float32),   # leading dims flatten into rows
     ((6, 64), True, "bfloat16"),       # bf16: cast back to x's type after f32 math
+    ((5, 2056), False, "bfloat16"),    # bf16 x and weight, wider than a pack per thread (1024)
+    ((2, 3, 4096), False, "bfloat16"), # the Llama-3-8B width, leading dims flattened
+    ((3, 16392), True, "bfloat16"),    # wide rows with a bias, D % 64 != 0
+    ((9, 1032), True, np.float32),     # f32, a ragged pack count per thread
 ])
 def test_fused_rms_norm_and_grads_match_reference(shape, bias, dtype):
     rng = np.random.RandomState(len(shape))
@@ -80,3 +84,19 @@ def test_fused_rms_norm_and_grads_match_reference(shape, bias, dtype):
         assert t.grad.dtype == tdt
         np.testing.assert_allclose(t.grad.float().numpy(), np.asarray(wg.astype(jnp.float32)),
                                    **gtol)
+
+
+@pytest.mark.parametrize("d,dtype,error,match", [
+    (64, torch.float32, ValueError, "must be on"),    # a CPU tensor is never sent to the kernel
+    (64, torch.bfloat16, ValueError, "must be on"),
+    (60, torch.float32, ValueError, "multiple of 8"),  # a row is a whole number of 16-byte packs
+])
+def test_rms_norm_kernel_wrapper_refuses_before_launch(d, dtype, error, match):
+    """The kernel's wrapper takes CUDA tensors only (the CPU path is the
+    plain version, chosen by the tensor's device in _FusedRMSNorm) and
+    refuses what the kernel cannot read, before it builds or launches
+    anything."""
+    x, w = torch.zeros(4, d, dtype=dtype), torch.ones(d, dtype=dtype)
+    with pytest.raises(error, match=match):
+        TIF._rms_norm_cuda(x, w, None, 1e-6)
+    assert LAUNCHES["rms_norm"] == 0
