@@ -30,7 +30,11 @@ Phases, one line each (any failure raises and exits non-zero):
   rms_norm_entry incubate fused_rms_norm, forward and backward, at 4096 x 4096
                  bf16 with an f32 weight: one kernel launch; output and grads
                  against the plain version through autograd
-Kernel checks (phase kernels): flash forward, paged attention, the flash
+Kernel checks (phase kernels): flash forward, paged attention (decode,
+extend, int8 and f32 pages, frontiers on the planned split boundaries, a
+long single row; every case launched twice for equal bits; timed as device
+time through CUDA graphs over a rotation of pools that exceeds the L2, so
+the pages are read cold, as the engine's layer pools are), the flash
 backward (dq and dk/dv, through autograd of the wrapper, against the plain
 backward and against autograd through the plain forward; every flash case
 logs the kernel variant it ran, ops.attention.kernel_variant), the fused AdamW
@@ -274,39 +278,141 @@ def paged_pool(gen, n_pages, bs, hkv, d, dtype):
 # pages, a short row, a full row, and last a padded row as the engine pads
 # an idle decode slot (one position, a table of the reserved page 0)
 PAGED_CTX = [2041, 1500, 777, 17, 2048, 1023, 300, 1]
+# the decode profile's shape (profile_decode: B = 8 rows at ~1000 tokens)
+PAGED_CTX_UNIFORM = [1000] * 8
 
 
-def check_paged(ta, gen, name, qn, kv_dtype, qdt=torch.bfloat16, timed=False):
+def boundary_ctx(ta, kv_dtype=torch.bfloat16) -> list:
+    """B = 8 cache lengths whose frontiers (ctx - 1) fall on the split
+    boundaries the wrapper plans for pages of `kv_dtype` at the serving
+    shape (B 8, H 32/8, D 128, a 128-page table): the last slot of a split,
+    the first of the next, and rows that end 1-2 slots past one."""
+    plan = ta.paged_split_plan(8, 1, 32, 8, 128, 128, kv_dtype=kv_dtype,
+                               sms=ta._sm_count(torch.cuda.current_device()))
+    ss = plan["split_pages"] * 16
+    return [ss, ss + 1, 2 * ss + 1, 2 * ss, 2048, ss + 2, 1, 2 * ss + 2]
+
+
+PAGED_L2_BYTES = 50e6  # the H100's L2: a timing that fits in it is warm
+
+
+def paged_inputs(gen, qn, kv_dtype, qdt=torch.bfloat16, ctx=PAGED_CTX):
+    """q [B, qn, 32, 128], one pool (k, v, scales) of 16-slot pages, a
+    shuffled block table of the engine's width (128 pages) padded with page
+    0, and each row's frontiers ending at its ctx - 1."""
     h, hkv, d, bs = 32, 8, 128, 16
-    b = len(PAGED_CTX)
-    m = 2048 // bs  # the serving engine's table width at max_seq_len 2048
-    kp, vp, sc = paged_pool(gen, 1 + b * m, bs, hkv, d, qdt if kv_dtype is None else kv_dtype)
+    b, m = len(ctx), 2048 // bs
+    pool = paged_pool(gen, 1 + b * m, bs, hkv, d, qdt if kv_dtype is None else kv_dtype)
     q = torch.randn(b, qn, h, d, generator=gen, device="cuda").to(qdt)
     pages = (torch.randperm(b * m, generator=gen, device="cuda") + 1).reshape(b, m).int()
-    ctx = torch.tensor(PAGED_CTX, device="cuda")
-    used = (torch.arange(m, device="cuda")[None] * bs < ctx[:, None]) & (ctx[:, None] > 1)
+    ctx_t = torch.tensor(ctx, device="cuda")
+    used = (torch.arange(m, device="cuda")[None] * bs < ctx_t[:, None]) & (ctx_t[:, None] > 1)
     bt = torch.where(used, pages, 0).int()  # unused entries padded with page 0
-    qpos = (ctx[:, None] - qn + torch.arange(qn, device="cuda")[None]).clamp_min(0).int()
+    qpos = (ctx_t[:, None] - qn + torch.arange(qn, device="cuda")[None]).clamp_min(0).int()
+    return q, pool, bt, qpos
+
+
+def paged_kv_bytes(pool, qpos) -> int:
+    """K/V bytes a call must read: each row's slots up to its last query's
+    position, with their scales for int8 pages."""
+    kp, _, sc = pool
+    hkv, d = kp.shape[2], kp.shape[3]
+    slots = int((qpos.max(dim=1).values + 1).sum())
+    return 2 * slots * hkv * d * kp.element_size() + (2 * slots * hkv * 4 if sc else 0)
+
+
+def cold_pools(gen, pool, qpos) -> list:
+    """`pool` and enough more of its shape that the K/V a call touches, over
+    the rotation, exceed the L2 twice: each call then reads from HBM, as
+    the engine's 32 layer pools are read in turn."""
+    kp = pool[0]
+    n = max(4, math.ceil(2 * PAGED_L2_BYTES / paged_kv_bytes(pool, qpos)))
+    return [pool] + [paged_pool(gen, *kp.shape, kp.dtype) for _ in range(n - 1)]
+
+
+def rotated(call, pools):
+    """A function of no argument that runs call(pool) on the next pool."""
+    turn = [0]
+
+    def fn():
+        call(pools[turn[0] % len(pools)])
+        turn[0] += 1
+    return fn
+
+
+def check_paged(ta, gen, name, qn, kv_dtype, qdt=torch.bfloat16, timed=False, ctx=PAGED_CTX):
+    """The wrapper against the plain version on a shuffled pool, then a
+    second launch on the same inputs, which must give the same bits.
+
+    Timed: `ms` is device time through a CUDA graph over a rotation of
+    pools with the same tables (cold_pools), so every call reads its pages
+    from HBM; `eager_ms` is one call from Python on one pool, its host time
+    included."""
+    q, pool, bt, qpos = paged_inputs(gen, qn, kv_dtype, qdt, ctx)
+    kp, vp, sc = pool
+    b, _, h, d = q.shape
+    plan = ta.paged_split_plan(b, qn, h, kp.shape[2], d, bt.shape[1], kv_dtype=kp.dtype,
+                               sms=ta._sm_count(torch.cuda.current_device()))
     before = ta.LAUNCHES["paged_attn"]
     got = ta.flash_decode_paged_multi(q, kp, vp, bt, qpos, **sc)
     if ta.LAUNCHES["paged_attn"] != before + 1:
         raise AssertionError(f"{name}: the wrapper did not launch the paged kernel exactly once")
+    again = ta.flash_decode_paged_multi(q, kp, vp, bt, qpos, **sc)
     want = ta.paged_extend_reference(q, kp, vp, bt, qpos, **sc)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
     tol = TOL["int8" if kv_dtype == torch.int8 else "f32" if qdt == torch.float32 else "bf16"]
-    rec = dict(case=name, **compare(name, got, want, tol))
+    rec = dict(case=name, variant="mma" if ta.paged_uses_mma(kp.dtype, d) else "cuda_core",
+               **compare(name, got, want, tol), bit_identical_relaunch=True,
+               plan={k: plan[k] for k in ("split_pages", "splits", "rows_per_cta", "row_tiles", "ctas")})
     if timed:
-        # each row reads K and V up to its last query's position; each query
-        # scores every position up to its own
-        slots = int((qpos.max(dim=1).values + 1).sum())
-        kv_bytes = 2 * slots * hkv * d * kp.element_size() + (2 * slots * hkv * 4 if sc else 0)
+        # each query scores every position up to its own
+        kv_bytes = paged_kv_bytes(pool, qpos)
         flops = 4.0 * h * d * float((qpos.long() + 1).sum())
         bnd, by = bound_ms(flops, kv_bytes + nbytes(q, got, bt, qpos), qdt)
-        rec.update(ms=time_ms(lambda: ta.flash_decode_paged_multi(q, kp, vp, bt, qpos, **sc)),
+        pools = cold_pools(gen, pool, qpos)
+        call = lambda pl: ta.flash_decode_paged_multi(q, pl[0], pl[1], bt, qpos, **pl[2])
+        rec.update(ms=time_graph_ms(rotated(call, pools), reps=4 * len(pools)),
+                   eager_ms=time_ms(lambda: call(pool)),
                    plain_ms=time_ms(lambda: ta.paged_extend_reference(q, kp, vp, bt, qpos, **sc),
                                     iters=5),
-                   library_ms=None, bound_ms=bnd, bound_by=by)
+                   library_ms=None, bound_ms=bnd, bound_by=by, pools_rotated=len(pools),
+                   touched_mb_per_call=kv_bytes / 1e6)
+        if rec["ms"] < bnd:
+            raise AssertionError(f"{name}: {rec['ms']} ms is under the {bnd} ms bound: a warm timing")
+        del pools
     log("kernel paged_attn", **rec)
+    return rec
+
+
+def paged_checks(ta, gen) -> dict:
+    """Every paged case; returns the record of the kernels line (the
+    decode case at PAGED_CTX, with the timed decode cases by shape)."""
+    ctx = "B8 ctx " + "/".join(map(str, PAGED_CTX)) + " bs16"
+    edge = {kv: boundary_ctx(ta, kv) for kv in (torch.bfloat16, torch.int8, torch.float32)}
+    ectx = {kv: "B8 ctx " + "/".join(map(str, c)) + " bs16 (split boundaries)" for kv, c in edge.items()}
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    paged = [check_paged(ta, gen, f"decode Q1 {ctx} bf16", 1, None, timed=True),
+             check_paged(ta, gen, "decode Q1 B8 ctx 1000 bs16 bf16 (the decode profile's shape)",
+                         1, None, timed=True, ctx=PAGED_CTX_UNIFORM),
+             check_paged(ta, gen, f"decode Q1 {ctx} int8 pages", 1, torch.int8, timed=True),
+             check_paged(ta, gen, f"extend Q4 {ctx} bf16", 4, None, timed=True),
+             # 160 rows in 10 row tiles of 16: each tile streams its kv head's
+             # whole context, so the call reads K/V up to 10 times
+             check_paged(ta, gen, f"extend Q40 {ctx} bf16 (rows over CTAs; one split: no merge)",
+                         40, None, timed=True)]
+    rec = dict(paged[0], by_shape=[
+        {k: r[k] for k in ("case", "variant", "ms", "eager_ms", "plain_ms", "bound_ms", "max_abs_err",
+                           "plan")}
+        for r in paged])
+    check_paged(ta, gen, f"decode Q1 {ctx} f32 (predictor)", 1, None, qdt=torch.float32)
+    check_paged(ta, gen, f"decode Q1 {ectx[bf]} bf16", 1, None, ctx=edge[bf])
+    check_paged(ta, gen, f"extend Q4 {ectx[bf]} bf16 (queries straddle a boundary)", 4, None,
+                ctx=edge[bf])
+    check_paged(ta, gen, f"extend Q4 {ectx[i8]} int8 pages", 4, i8, ctx=edge[i8])
+    check_paged(ta, gen, f"decode Q1 {ectx[f32]} f32", 1, None, qdt=f32, ctx=edge[f32])
+    check_paged(ta, gen, "decode Q1 B1 ctx 2048 bs16 bf16 (one long row)", 1, None, ctx=[2048])
     return rec
 
 
@@ -364,21 +470,40 @@ def profile_decode(engine, ctx=1000, steps=8):
             step(ctx + 1 + steps + i)
         torch.cuda.synchronize()
     pool.reset()
-    by_kind = {}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
-            continue
-        n = e.key.lower()
-        kind = ("paged_attn" if "paged_attn" in n else
-                "matmul" if any(t in n for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) else
-                "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
-    busy = sum(by_kind.values())
+    kind = lambda n: ("paged_attn" if "paged_attn" in n else
+                      "matmul" if any(t in n for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+                      else "other")
+    by_kind, busy = device_ms_by_kind(prof, kind, steps)
     return dict(context=ctx, batch=8, step_ms=step_ms,
                 device_ms_per_step={k: round(v, 4) for k, v in sorted(by_kind.items())},
                 device_busy_ms=busy if by_kind else None,
                 device_idle_share=(1.0 - busy / step_ms) if by_kind else None)
+
+
+def _union_us(spans) -> float:
+    """Microseconds covered by a list of (start, end) intervals."""
+    total, lo, hi = 0.0, None, None
+    for a, b in sorted(spans):
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+def device_ms_by_kind(prof, kind, steps) -> tuple:
+    """Device ms a step of each kind of kernel (`kind` maps a lowercase
+    kernel name to it) and of all together, as the union of the kernels'
+    intervals in the trace: the paged merge kernel is launched as a
+    programmatic dependent and overlaps the split kernel it waits for, so
+    a sum of durations would count that overlap twice."""
+    spans = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            spans.setdefault(kind(e.name.lower()), []).append((e.time_range.start, e.time_range.end))
+    by_kind = {k: _union_us(v) / 1e3 / steps for k, v in spans.items()}
+    return by_kind, _union_us([x for v in spans.values() for x in v]) / 1e3 / steps
 
 
 def serve_bf16(ptt, ta, state):
@@ -990,12 +1115,7 @@ def main(argv=None) -> int:
         check_flash(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32, False)
         check_flash(ta, gen, "f32 dropout p=0.1 seed 1234 S256 H8/2 D128 causal", 1, 256, 256, 8, 2,
                     128, torch.float32, True, dropout_p=0.1)
-        ctx = "B8 ctx " + "/".join(map(str, PAGED_CTX)) + " bs16"
-        records["paged_attn"] = check_paged(ta, gen, f"decode Q1 {ctx} bf16", 1, None, timed=True)
-        check_paged(ta, gen, f"extend Q4 {ctx} bf16", 4, None, timed=True)
-        check_paged(ta, gen, f"decode Q1 {ctx} int8 pages", 1, torch.int8, timed=True)
-        check_paged(ta, gen, f"extend Q40 {ctx} bf16 (rows split over 2 CTAs)", 40, None)
-        check_paged(ta, gen, f"decode Q1 {ctx} f32 (predictor)", 1, None, qdt=torch.float32)
+        records["paged_attn"] = paged_checks(ta, gen)
         records["flash_bwd_dq"], records["flash_bwd_dkdv"] = check_flash_bwd(
             ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
             torch.bfloat16, True, timed=True)

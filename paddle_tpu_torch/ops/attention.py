@@ -15,9 +15,10 @@ Layouts follow the JAX package: q/k/v [B, S, H, D]; pages [N, bs, Hkv, D].
 """
 from __future__ import annotations
 
+import functools
 import math
 import numbers
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -433,6 +434,62 @@ def paged_decode_reference(q, k_pages, v_pages, block_tables, seq_lens, sm_scale
                                   sm_scale, k_scales, v_scales)[:, 0]
 
 
+# How the paged kernel cuts a call, from shapes alone. The context of each
+# (b, kv head) is split so that the grid holds about PAGED_CTAS_PER_SM CTAs
+# for each SM of the card, with at least PAGED_MIN_SPLIT_PAGES pages a
+# split. On the mma path a CTA streams 4 warps' rings (~70 KB of shared
+# memory: 3 fit an SM); on the CUDA-core path one ring with a barrier a
+# tile, so it wants more, shorter splits. At the serving shape (B 8, Hkv 8,
+# a 128-page table, 132 SMs) that is 7 splits of 19 pages (448 CTAs) on
+# the mma path. The Q * H / Hkv query rows of a (b, kv head) go to as few
+# CTAs as hold them: 16 rows (one mma tile) a CTA for bf16 pages at head
+# dim 64 or 128, whose scores and P.V run on the tensor cores; else
+# PAGED_ROWS_PER_CTA at head dim 128, proportionally fewer at wider heads,
+# so their f32 state fits in shared memory beside the ring.
+PAGED_CTAS_PER_SM = {"mma": 3, "cuda_core": 8}
+PAGED_MIN_SPLIT_PAGES = 4
+PAGED_ROWS_PER_CTA = 64
+PAGED_MMA_ROWS = 16
+
+
+def paged_uses_mma(kv_dtype: torch.dtype, d: int) -> bool:
+    """Whether the paged kernel runs its tensor-core (mma) path: bf16 pages
+    at head dim 64 or 128. Every other case runs on the CUDA cores."""
+    return kv_dtype == torch.bfloat16 and d in (64, 128)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_split_plan(b: int, qn: int, h: int, hkv: int, d: int, m: int, sms: int,
+                     kv_dtype: torch.dtype = torch.bfloat16,
+                     split_pages: Optional[int] = None) -> dict:
+    """The paged kernel's plan for q [b, qn, h, d], kv heads `hkv`, a block
+    table [b, m], a card of `sms` SMs and pages of `kv_dtype`, from shapes
+    alone (no frontier is read back from the device): pages a split
+    (`split_pages` overrides the rule, for comparisons of split sizes) and
+    the number of splits, q rows a CTA and row tiles, the grid's CTAs, and
+    the f32 floats of the merge's workspace (0 with one split: the kernel
+    then writes the output itself). Cached per shape, so a decode step pays
+    for a plan once; the dict is shared, so callers only read it."""
+    rows = qn * (h // hkv)
+    mma = paged_uses_mma(kv_dtype, d)
+    cap = PAGED_MMA_ROWS if mma else max(1, min(PAGED_ROWS_PER_CTA, PAGED_ROWS_PER_CTA * 128 // d))
+    tiles = -(-rows // cap)
+    if split_pages is None:
+        per_sm = PAGED_CTAS_PER_SM["mma" if mma else "cuda_core"]
+        fill = -(-per_sm * sms // (b * hkv * tiles))
+        split_pages = -(-m // max(1, min(fill, -(-m // PAGED_MIN_SPLIT_PAGES))))
+    sp = max(1, min(int(split_pages), m))
+    splits = -(-m // sp)
+    return dict(split_pages=sp, splits=splits, rows_per_cta=-(-rows // tiles), row_tiles=tiles,
+                ctas=b * hkv * splits * tiles,
+                workspace_floats=b * qn * h * splits * (d + 2) if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _paged_cuda(q, k_pages, v_pages, block_tables, q_positions, scale, k_scales, v_scales):
     from .kernels import build
 
@@ -464,14 +521,19 @@ def _paged_cuda(q, k_pages, v_pages, block_tables, q_positions, scale, k_scales,
     qp = _int32_on(q_positions, dev).contiguous()
     if bt.ndim != 2 or bt.shape[0] != b:
         raise ValueError(f"paged kernel: block_tables {tuple(bt.shape)} must be [B={b}, M]")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan = paged_split_plan(b, qn, h, hkv, d, bt.shape[1], _sm_count(index), k_pages.dtype)
     out = torch.empty_like(q)
+    ws = (torch.empty(plan["workspace_floats"], dtype=torch.float32, device=dev)
+          if plan["workspace_floats"] else None)
     fn = build.function("paged_attn")
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
-            bt.data_ptr(), qp.data_ptr(), out.data_ptr(),
+            bt.data_ptr(), qp.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], b, qn, h, hkv, d, bs, bt.shape[1],
-            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            plan["split_pages"], plan["rows_per_cta"], float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "paged_attn")
     LAUNCHES["paged_attn"] += 1
     return out

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -47,8 +48,7 @@ _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "ptt_flash_fwd",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I,
                    _P]),
-    "paged_attn": ("paged_attn", "ptt_paged_attn",
-                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "paged_attn": ("paged_attn", "ptt_paged_attn", [_P] * 9 + [_I] * 11 + [_F, _P]),
     "flash_bwd_dq": ("flash_bwd", "ptt_flash_bwd_dq", [_P] * 7 + _BWD + [_I, _P]),
     "flash_bwd_dkdv": ("flash_bwd", "ptt_flash_bwd_dkdv", [_P] * 8 + _BWD + [_I, _P]),
     "fused_adamw": ("fused_adamw", "ptt_fused_adamw",
@@ -59,6 +59,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _functions: Dict[str, ctypes._CFuncPtr] = {}
 _libraries: List[ctypes.CDLL] = []  # kept alive while the functions are used
+_variant_ids = itertools.count()
 
 
 def nvcc_path() -> str:
@@ -152,8 +153,10 @@ def build_variants(name: str, variants: Dict[str, tuple]) -> Dict[str, tuple]:
     out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (label, (src, defines)) in enumerate(variants.items()):
-        so = out_dir / f"{name}-{os.getpid()}-{i}.so"
+    for label, (src, defines) in variants.items():
+        # a file name of its own: dlopen of a path already loaded would
+        # return the earlier library
+        so = out_dir / f"{name}-{os.getpid()}-{next(_variant_ids)}.so"
         procs[label] = (_nvcc(Path(src) if src else _HERE / SOURCES[name], so, defines), so)
     out = {}
     for label, (proc, so) in procs.items():

@@ -69,3 +69,15 @@ def test_headers_are_in_the_library_hash():
     """An edit to a shared header must rebuild every library."""
     here = Path(build.__file__).parent
     assert set(build._HEADERS) == {p.name for p in here.glob("*.cuh")}
+
+
+def test_paged_attn_entry_takes_the_split_plan():
+    """The paged kernel's C entry point carries the merge's workspace after
+    the output and the host's split plan (pages a split, q rows a CTA)
+    before the scale: the wrapper passes them in that order."""
+    text = (Path(build.__file__).parent / "paged_attn.cu").read_text()
+    params = re.search(r'extern "C" int ptt_paged_attn\(([^)]*)\)', text).group(1)
+    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+    assert names[7:9] == ["out", "workspace"]
+    assert names[-5:] == ["M", "split_pages", "rows_per_cta", "scale", "stream"]
+    assert len(names) == len(build._SIGNATURES["paged_attn"][2])

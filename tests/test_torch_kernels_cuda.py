@@ -33,7 +33,9 @@ def _assert_close(got, want, dt, floor=0.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["flash_bf16_causal", "flash_f32_ragged", "flash_dropout",
-                                  "paged_decode", "paged_extend_int8", "paged_extend_rows_split"])
+                                  "paged_decode", "paged_extend_int8", "paged_extend_rows_split",
+                                  "paged_split_boundary", "paged_extend_int8_multi_split",
+                                  "paged_bit_identical", "paged_one_split"])
 def test_cuda_kernel_matches_plain(case):
     """On the card: each wrapper (which launches its kernel once) against
     the kernel's plain version on the same inputs."""
@@ -55,12 +57,27 @@ def test_cuda_kernel_matches_plain(case):
         torch.testing.assert_close(lse, lse_w, rtol=1e-4, atol=1e-4)
         assert ta.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
     else:
-        qn = {"paged_decode": 1, "paged_extend_int8": 4, "paged_extend_rows_split": 40}[case]
-        dt = torch.float32 if case == "paged_extend_int8" else torch.bfloat16
+        # (queries, q dtype, int8 pages, table width, last query's position per row):
+        # the wrapper's plan at B 4, H 8 / Hkv 2 splits a 15-page table into
+        # 4 splits and a 40-page table into 10, of 4 pages (64 slots), so
+        # frontiers 255/256/511 sit on split boundaries; a 4-page table is
+        # one split ("paged_one_split": no workspace, no merge)
+        qn, dt, int8, m, last = {
+            "paged_decode": (1, torch.bfloat16, False, 15, [200, 17, 239, 90]),
+            "paged_extend_int8": (4, torch.float32, True, 15, [200, 17, 239, 90]),
+            "paged_extend_rows_split": (40, torch.bfloat16, False, 15, [200, 17, 239, 90]),
+            "paged_split_boundary": (1, torch.bfloat16, False, 40, [255, 256, 511, 0]),
+            "paged_extend_int8_multi_split": (4, torch.bfloat16, True, 40, [600, 17, 258, 513]),
+            "paged_bit_identical": (1, torch.bfloat16, False, 40, [639, 300, 256, 1]),
+            "paged_one_split": (4, torch.bfloat16, False, 4, [63, 17, 40, 2]),
+        }[case]
+        plan = ta.paged_split_plan(4, qn, 8, 2, 128, m, ta._sm_count(0),
+                                   torch.int8 if int8 else dt)
+        assert plan["splits"] == m // 4 + (m % 4 > 0) and plan["split_pages"] == 4
         q = rn(4, qn, 8, 128, dt=dt)
-        kp, vp = rn(64, 16, 2, 128), rn(64, 16, 2, 128)
+        kp, vp = rn(4 * m + 4, 16, 2, 128), rn(4 * m + 4, 16, 2, 128)
         kw = {}
-        if case == "paged_extend_int8":
+        if int8:
             from paddle_tpu_torch.quantization.observers import absmax_scale, quantize_absmax
 
             ks, vs = absmax_scale(kp, dim=-1), absmax_scale(vp, dim=-1)
@@ -68,13 +85,16 @@ def test_cuda_kernel_matches_plain(case):
             kw = dict(k_scales=ks, v_scales=vs)
         else:
             kp, vp = kp.to(dt), vp.to(dt)
-        bt = torch.randperm(63, generator=g, device=dev)[:60].reshape(4, 15).int() + 1
-        last = torch.tensor([200, 17, 239, 90], device=dev)  # frontiers inside pages
+        bt = torch.randperm(4 * m + 3, generator=g, device=dev)[:4 * m].reshape(4, m).int() + 1
+        last = torch.tensor(last, device=dev)
         qpos = (last[:, None] - (qn - 1) + torch.arange(qn, device=dev)[None]).clamp_min(0).int()
         got = ta.flash_decode_paged_multi(q, kp, vp, bt, qpos, **kw)
         want = ta.paged_extend_reference(q, kp, vp, bt, qpos, **kw)
         _assert_close(got, want, dt)
         assert ta.LAUNCHES["paged_attn"] == before["paged_attn"] + 1
+        if case == "paged_bit_identical":  # the merge sums the splits in a fixed order
+            assert all(torch.equal(got, ta.flash_decode_paged_multi(q, kp, vp, bt, qpos, **kw))
+                       for _ in range(3))
 
 
 @pytest.mark.cuda
