@@ -30,22 +30,36 @@ Phases, one line each (any failure raises and exits non-zero):
   rms_norm_entry incubate fused_rms_norm, forward and backward, at 4096 x 4096
                  bf16 with an f32 weight: one kernel launch; output and grads
                  against the plain version through autograd
-Kernel checks (phase kernels): flash forward, paged attention (decode,
-extend, int8 and f32 pages, frontiers on the planned split boundaries, a
-long single row; every case launched twice for equal bits; timed as device
-time through CUDA graphs over a rotation of pools that exceeds the L2, so
-the pages are read cold, as the engine's layer pools are), the flash
-backward (dq and dk/dv, through autograd of the wrapper, against the plain
-backward and against autograd through the plain forward; every flash case
-logs the kernel variant it ran, ops.attention.kernel_variant), the fused AdamW
-(64M-element buckets; the whole training bucket, slice by slice; the
-slices of a bucket past 2^31 elements) and RMSNorm, each against its plain
-version.
+  ernie_parity   two tiny ERNIEs (hidden 256, 4 heads of 64: the tensor-core
+                 flash kernels, non-causal) from one set of weights, on the
+                 card and on the CPU: 2 AMP-O1 fused-AdamW steps each through
+                 to_static on a batch holding the padding id 0; train_parity's
+                 limits, the pooler (outside the MLM loss) unmoved
+  ernie_seq128   bench.py's headline: ERNIE-3.0-base (vocab 40000, hidden 768,
+                 12 layers, ffn 3072) MLM, B64 S128, 12 heads, AMP O1 bf16,
+                 fused AdamW with a bf16 moment2, through to_static: 5 steps
+                 on one batch; losses, exact launches per step, ms/step,
+                 tokens/s, the bench's MFU, peak memory, a profiled split
+  ernie_seq4096  the same at bench.py's long shape: B3 (B2 if B3 runs out of
+                 memory) S4096, 6 heads of 128, attention dropout 0.1
+Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
+ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
+on the planned split boundaries, a long single row; every case launched twice
+for equal bits; timed as device time through CUDA graphs over a rotation of
+pools that exceeds the L2, so the pages are read cold, as the engine's layer
+pools are), the flash backward (dq and dk/dv, through autograd of the wrapper,
+against the plain backward and against autograd through the plain forward;
+every flash case logs the kernel variant it ran, ops.attention.kernel_variant),
+the fused AdamW (64M-element buckets; the Llama training bucket and ERNIE's
+two, at max positions 512 and 4096, slice by slice; the slices of a bucket past 2^31 elements) and RMSNorm, each
+against its plain version.
 Then a {"kernels": [...]} line and, last, the device line the checker reads.
 """
 from __future__ import annotations
 
 import argparse
+import copy
+import gc
 import json
 import math
 import os
@@ -247,17 +261,24 @@ def check_flash(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_p=0.
     if not rec["lse_err"] <= 1e-4:
         raise AssertionError(f"{name}: lse disagrees with the plain version: {rec}")
     if timed:
+        # the kernel and its plain version with the case's dropout; the
+        # library call (torch's sdpa) without: its dropout is another function
         off = sk - sq
         pairs = b * h * (sum(min(sk, i + 1 + off) for i in range(sq)) if causal else sq * sk)
         flops = 4.0 * pairs * d
         bnd, by = bound_ms(flops, nbytes(q, k, v, got, lse), dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        rec.update(
-            ms=time_ms(lambda: ta.flash_attention_bshd(q, k, v, causal=causal)),
-            plain_ms=time_ms(lambda: ta._flash_plain(q, k, v, causal, scale, 0.0, 0), iters=5),
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)),
-            bound_ms=bnd, bound_by=by)
+        kern = lambda: ta.flash_attention_bshd(q, k, v, causal=causal, dropout_p=dropout_p,
+                                               dropout_seed=1234)
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                                       enable_gqa=True)
+        # ms, library_ms: eager calls from Python; *graph_ms: device time
+        # through a CUDA graph (a short call's eager time is the host's)
+        rec.update(ms=time_ms(kern), graph_ms=time_graph_ms(kern),
+                   plain_ms=time_ms(lambda: ta._flash_plain(q, k, v, causal, scale, dropout_p, 1234),
+                                    iters=5),
+                   library_ms=time_ms(lib), library_graph_ms=time_graph_ms(lib),
+                   library_dropout=False, bound_ms=bnd, bound_by=by)
     log("kernel flash_fwd", **rec)
     return rec
 
@@ -677,8 +698,10 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     del out_l
     bnd_dq, by_dq = bound_ms(6.0 * pairs * d, nbytes(q, k, v, do, lse, delta, dq_out), dtype)
     bnd_kv, by_kv = bound_ms(8.0 * pairs * d, nbytes(q, k, v, do, lse, delta, k, v), dtype)
-    dq_rec = dict(max_abs_err=rec["dq"]["max_abs_err"], ms=time_ms(lambda: ta._flash_bwd_dq_cuda(*args)),
-                  bound_ms=bnd_dq, bound_by=by_dq, variant=rec["variant"]["flash_bwd_dq"], **common)
+    dq_call, kv_call = lambda: ta._flash_bwd_dq_cuda(*args), lambda: ta._flash_bwd_dkdv_cuda(*args)
+    dq_rec = dict(max_abs_err=rec["dq"]["max_abs_err"], ms=time_ms(dq_call),
+                  graph_ms=time_graph_ms(dq_call), bound_ms=bnd_dq, bound_by=by_dq,
+                  variant=rec["variant"]["flash_bwd_dq"], **common)
     if dq_rec["variant"] != "cuda_core":
         # the earlier (CUDA-core) dq kernel on the same inputs, straight through
         # its C entry point (variant 0), outside the wrapper and its count
@@ -692,7 +715,7 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
             *cc_args, torch.cuda.current_stream().cuda_stream), "flash_bwd_dq (CUDA core)"),
             iters=5, warmup=1)
     kv_rec = dict(max_abs_err=max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"]),
-                  ms=time_ms(lambda: ta._flash_bwd_dkdv_cuda(*args)), bound_ms=bnd_kv,
+                  ms=time_ms(kv_call), graph_ms=time_graph_ms(kv_call), bound_ms=bnd_kv,
                   bound_by=by_kv, variant=rec["variant"]["flash_bwd_dkdv"], **common)
     log("kernel flash_bwd timing", case=name, variant=rec["variant"], dq=dq_rec, dkdv=kv_rec,
         note="plain_ms and library_ms are for the pair (dq, dk, dv together)")
@@ -789,6 +812,14 @@ def train_bucket_elems(cfg) -> int:
     kv = hdim // cfg["num_attention_heads"] * cfg["num_key_value_heads"]
     layer = 2 * hdim * hdim + 2 * hdim * kv + 3 * hdim * f + 2 * hdim
     return 2 * v * hdim + cfg["num_hidden_layers"] * layer + hdim
+
+
+def ernie_bucket_elems(cfg, max_pos=512) -> int:
+    """Elements of ERNIE MLM's one flat bucket: every param but the
+    pooler's, which has no gradient (all f32, one weight decay)."""
+    h, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    layer = 4 * (h * h + h) + 2 * h * f + f + h + 4 * h
+    return (v + max_pos + 4 + 2) * h + cfg["num_hidden_layers"] * layer + h * h + 3 * h + v
 
 
 def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
@@ -954,16 +985,22 @@ def train_parity(ptt, ta, cfg):
         head_dim=head_dim, variant=variant, launches=launches, steps=2, **rec)
 
 
-def profile_train(ptt, model, opt, ids, step_ms, steps=2):
+def profile_train(step, step_ms, steps=2):
+    """Device time by kind of kernel over `steps` calls of `step`, the
+    idle share against the host-clock `step_ms`, and the torch ops whose
+    own kernels take the most device time (the hand-written kernels are
+    launched through ctypes, under no torch op)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            train_step(ptt, model, opt, ids, ids)
+            step()
         torch.cuda.synchronize()
-    by_kind = {}
+    by_kind, by_op = {}, {}
     for e in prof.key_averages():
         us = e.self_device_time_total
+        if e.device_type == torch.autograd.DeviceType.CPU and us > 0:
+            by_op[e.key] = us / 1e3 / steps
         if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
             continue
         n = e.key.lower()
@@ -977,7 +1014,9 @@ def profile_train(ptt, model, opt, ids, step_ms, steps=2):
     return dict(steps=steps, step_ms=step_ms,
                 device_ms_per_step={k: round(v, 3) for k, v in sorted(by_kind.items())},
                 device_busy_ms=busy if by_kind else None,
-                device_idle_share=(1.0 - busy / step_ms) if by_kind else None)
+                device_idle_share=(1.0 - busy / step_ms) if by_kind else None,
+                device_ms_by_torch_op=[[k, round(v, 3)] for k, v in
+                                       sorted(by_op.items(), key=lambda kv: -kv[1])[:14]])
 
 
 def rms_norm_entry(ta, IF, state):
@@ -1052,7 +1091,7 @@ def train_bf16(ptt, ta, state, steps=5):
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"train_bf16: losses not finite and falling: {losses}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_train(ptt, model, opt, ids, step_ms)
+    prof = profile_train(lambda: train_step(ptt, model, opt, ids, ids), step_ms)
     state["train_launches"] = launches
     log("train_bf16", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=1,
         params_b=sum(p.numel() for p in model.parameters()) / 1e9, init_s=init_s,
@@ -1063,11 +1102,223 @@ def train_bf16(ptt, ta, state, steps=5):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# ERNIE-3.0 MLM pretraining (bench.py's headline workload)
+# ---------------------------------------------------------------------------
+
+# ERNIE-3.0-base at full width and depth (bench.py:189-200, _ernie_dims)
+ERNIE_BASE = dict(vocab_size=40000, hidden_size=768, num_hidden_layers=12, intermediate_size=3072)
+# the parity model: 4 heads of 64 (the tensor-core flash variants), non-causal
+TINY_ERNIE = dict(vocab_size=1024, hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+                  intermediate_size=512, max_position_embeddings=128, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0)
+ERNIE_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkdv": 12, "fused_adamw": 1}
+# a leaf of an encoder layer whose CPU gradient norm is below this share of
+# the same layer's query-bias gradient norm holds a gradient that is 0 but
+# for rounding (the key bias: 0.012-0.017 measured on the CPU in bf16 O1,
+# 1e-6 in f32); both devices' gradients there are held to it as noise
+ZERO_GRAD_NOISE = 0.05
+
+
+def ernie_train_step(ptt, model, opt):
+    """bench.py:237-245's step: AMP O1 bf16 MLM loss, backward, AdamW,
+    clear_grad, through to_static; with keep_grads it also hands back the
+    grads of the backward (CPU f32 copies)."""
+
+    @ptt.jit.to_static
+    def step(ids, labels, keep_grads=False):
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=labels)
+        loss.backward()
+        grads = ({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                  if p.grad is not None} if keep_grads else None)
+        opt.step()
+        opt.clear_grad()
+        return loss, grads
+
+    return step
+
+
+def ernie_parity(ptt, ta):
+    """A tiny ERNIE on the card (kernels) and on the CPU (plain versions)
+    from the same weights and batch, 2 AMP-O1 fused-AdamW steps each
+    through to_static; train_parity's limits."""
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ErnieModel
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(3)
+    ref = ErnieForMaskedLM(ErnieModel(**TINY_ERNIE))
+    rng = np.random.RandomState(4)
+    ids = rng.randint(1, TINY_ERNIE["vocab_size"], (2, 64))
+    ids[0, 40:] = 0  # the padding id: its embedding output must stay zero
+    ids[1, 3] = 0
+    labels = np.where(rng.rand(2, 64) < 0.5, ids, -100)
+    head_dim = TINY_ERNIE["hidden_size"] // TINY_ERNIE["num_attention_heads"]
+    variant = {k: ta.kernel_variant(k, torch.bfloat16, head_dim)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    if set(variant.values()) != {"wgmma"}:
+        raise AssertionError(f"ernie_parity: head_dim {head_dim} runs {variant}, not wgmma")
+    pooler0 = {n: p.detach().float().cpu().clone() for n, p in ref.named_parameters()
+               if n.startswith("ernie.pooler.")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(ref).to(dev)
+        opt = ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
+                                  moment2_dtype="bfloat16")
+        step = ernie_train_step(ptt, model, opt)
+        x, y = torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+        ptt.seed(11)  # the same stochastic-rounding seeds on both sides
+        before = dict(ta.LAUNCHES)
+        loss1, grads = step(x, y, keep_grads=True)
+        loss2, _ = step(x, y)
+        launches = {k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP}
+        params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        runs[dev] = dict(losses=[loss1.item(), loss2.item()], grads=grads, params=params,
+                         launches=launches)
+    want = {k: 2 * (TINY_ERNIE["num_hidden_layers"] if k != "fused_adamw" else 1)
+            for k in ERNIE_PER_STEP}
+    if runs["cuda"]["launches"] != want or any(runs["cpu"]["launches"].values()):
+        raise AssertionError(f"ernie_parity: launches card {runs['cuda']['launches']}, cpu "
+                             f"{runs['cpu']['launches']}; expected {want} on the card, none on the CPU")
+    card, cpu = runs["cuda"], runs["cpu"]
+    if set(card["grads"]) != set(cpu["grads"]) or any(n in cpu["grads"] for n in pooler0):
+        raise AssertionError("ernie_parity: the sets of params with a gradient differ, or the "
+                             "pooler (outside the MLM loss) got one")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    # a leaf whose true gradient is 0 (the key bias: a shift of every key by
+    # b moves one query's scores by the same q.b, which the softmax ignores)
+    # holds only each device's own rounding noise: chosen by the rule on the
+    # CPU gradient above, and held to be noise on both devices, not to the
+    # other device's noise
+    def query_bias_norm(n):
+        layer = re.match(r".*\.layers\.\d+\.", n)
+        return cpu["grads"][layer.group(0) + "self_attn.q_proj.bias"].norm().item() if layer else None
+
+    ref_norm = {n: query_bias_norm(n) for n in cpu["grads"]}
+    zero_grad = sorted(n for n, g in cpu["grads"].items()
+                       if ref_norm[n] and g.norm().item() < ZERO_GRAD_NOISE * ref_norm[n])
+    zero_grad_noise = max((r["grads"][n].norm().item() / ref_norm[n] for r in runs.values()
+                           for n in zero_grad), default=0.0)
+    grad_rel = max(((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for n, g in cpu["grads"].items() if n not in zero_grad)
+    dp = torch.cat([(card["params"][n] - w).abs().reshape(-1) for n, w in cpu["params"].items()])
+    pooler_still = all(torch.equal(r["params"][n], w) for r in runs.values()
+                       for n, w in pooler0.items())
+    pad_row_moved = all(bool(r["params"]["ernie.embeddings.word_embeddings.weight"][0].any())
+                        for r in runs.values())
+    rec = dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_max_rel_err=loss_rel,
+               grad_max_rel_l2_err=grad_rel, zero_grad_leaves=zero_grad,
+               zero_grad_over_query_bias=zero_grad_noise,
+               param_max_abs_diff_over_lr=dp.max().item() / TRAIN_LR,
+               param_mean_abs_diff_over_lr=dp.mean().item() / TRAIN_LR,
+               pooler_unchanged=pooler_still, padding_row_moved=pad_row_moved,
+               tol=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL,
+                        zero_grad_over_query_bias=ZERO_GRAD_NOISE,
+                        param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                        param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR))
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL and pooler_still
+            and pad_row_moved and zero_grad_noise <= ZERO_GRAD_NOISE
+            and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+            and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR):
+        raise AssertionError(f"ernie_parity: card and CPU runs disagree: {rec}")
+    log("ernie_parity", layers=TINY_ERNIE["num_hidden_layers"], hidden=TINY_ERNIE["hidden_size"],
+        head_dim=head_dim, variant=variant, launches=card["launches"], steps=2,
+        ids_at_padding=int((ids == 0).sum()), **rec)
+
+
+def build_ernie(ptt, batch, seq, heads, max_pos, attn_dropout):
+    """bench.py:203-245 (build_train_step) with the port: ERNIE-3.0-base,
+    hidden dropout 0, fused AdamW 1e-4, wd 0.01, bf16 moment2, one batch
+    of random ids and labels from seed 0, the step through to_static."""
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ErnieModel
+
+    ptt.seed(0)
+    model = ErnieForMaskedLM(ErnieModel(
+        **ERNIE_BASE, num_attention_heads=heads, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=attn_dropout, max_position_embeddings=max_pos))
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    opt = ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    ids = ptt.to_tensor(rng.randint(0, ERNIE_BASE["vocab_size"], (batch, seq)).astype(np.int64))
+    labels = ptt.to_tensor(rng.randint(0, ERNIE_BASE["vocab_size"], (batch, seq)).astype(np.int64))
+    return model, ernie_train_step(ptt, model, opt), ids, labels
+
+
+def ernie_train(ptt, ta, state, name, batches, seq, heads, max_pos, attn_dropout, steps=5):
+    """The bench's ERNIE step at one shape: `steps` steps on one batch,
+    ms/step on the host clock over steps 2..N (step 1 builds the optimizer
+    bucket), exact launches per step, and the bench's MFU count
+    (bench.py:407-416). `batches`: the batch, then the smaller one the
+    bench falls back to when it runs out of memory."""
+    head_dim = ERNIE_BASE["hidden_size"] // heads
+    variant = {k: ta.kernel_variant(k, torch.bfloat16, head_dim)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    if set(variant.values()) != {"wgmma"}:
+        raise AssertionError(f"{name}: head_dim {head_dim} runs {variant}, not wgmma")
+    for batch in batches:
+        # earlier phases leave reference cycles (an optimizer and its flat
+        # engine, profiler events) that hold device memory until a full
+        # collection: collected here, the peak measured is this phase's own
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            model, step, ids, labels = build_ernie(ptt, batch, seq, heads, max_pos, attn_dropout)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            # the main path: every count 0 before it, read after it
+            ta.reset_launch_counts()
+            losses, per_step = [], []
+            for i in range(steps):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                before = dict(ta.LAUNCHES)
+                losses.append(step(ids, labels)[0])
+                per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == batches[-1]:
+                raise
+            model = step = None
+            log(name, out_of_memory_at_batch=batch)
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    launches = dict(ta.LAUNCHES)
+    losses = [x.item() for x in losses]
+    if any(d != ERNIE_PER_STEP for d in per_step):
+        raise AssertionError(f"{name}: launches per step {per_step} != {ERNIE_PER_STEP}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: losses not finite and falling: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emb = model.ernie.embeddings
+    n_params = sum(p.numel() for p in model.parameters())
+    flops_per_token = (6 * (n_params - emb.position_embeddings.weight.numel()
+                            - emb.token_type_embeddings.weight.numel())
+                       + 12 * seq * ERNIE_BASE["hidden_size"] * ERNIE_BASE["num_hidden_layers"])
+    tokens_per_sec = batch * seq / (step_ms / 1e3)
+    prof = profile_train(lambda: step(ids, labels), step_ms)
+    state.setdefault("ernie_launches", {})[name] = launches
+    log(name, batch=batch, seq=seq, heads=heads, head_dim=head_dim, variant=variant,
+        attn_dropout=attn_dropout, params_m=n_params / 1e6, init_s=init_s,
+        losses=losses,
+        ms_per_step=step_ms, tokens_per_sec=tokens_per_sec, flops_per_token=flops_per_token,
+        mfu=tokens_per_sec * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+        step_ms_at_peak=batch * seq * flops_per_token / PEAK_FLOPS[torch.bfloat16] * 1e3,
+        peak_mem_gb=peak, launches=launches, launches_per_step=per_step[0])
+    log(f"{name} profile", **prof)
+    del model, step
+    torch.cuda.empty_cache()
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
-                                        "train_parity,train_bf16,rms_norm_entry",
+                                        "train_parity,train_bf16,rms_norm_entry,ernie_parity,"
+                                        "ernie_seq128,ernie_seq4096",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -1099,9 +1350,9 @@ def main(argv=None) -> int:
         timed = [check_flash(ta, gen, f"bf16 causal B1 S{s} H32/8 D128{note}", 1, s, s, 32, 8, 128,
                              bf, True, timed=True)
                  for s, note in ((1024, " (serve prefill)"), (2048, ""), (4096, " (train)"))]
-        records["flash_fwd"] = dict(timed[0], by_shape=[
-            {k: r[k] for k in ("case", "variant", "ms", "plain_ms", "library_ms", "bound_ms",
-                               "max_abs_err")} for r in timed])
+        fwd_keys = ("case", "variant", "ms", "graph_ms", "plain_ms", "library_ms",
+                    "library_graph_ms", "bound_ms", "max_abs_err")
+        records["flash_fwd"] = dict(timed[0], by_shape=[{k: r[k] for k in fwd_keys} for r in timed])
         check_flash(ta, gen, "bf16 causal B2 Sq300 Sk777 H32/8 D128 (ragged tiles)", 2, 300, 777,
                     32, 8, 128, bf, True)
         check_flash(ta, gen, "bf16 causal B2 S2048 H32/8 D128", 2, 2048, 2048, 32, 8, 128, bf, True)
@@ -1110,6 +1361,17 @@ def main(argv=None) -> int:
         for causal in (True, False):
             check_flash(ta, gen, f"bf16 {'causal' if causal else 'non-causal'} B2 S512 H12/12 D64 "
                         "(ERNIE heads)", 2, 512, 512, 12, 12, 64, bf, causal, timed=causal)
+        ernie = [check_flash(ta, gen, "bf16 non-causal B64 S128 H12 D64 (ERNIE seq128)", 64, 128,
+                             128, 12, 12, 64, bf, False, timed=True),
+                 check_flash(ta, gen, "bf16 non-causal B3 S4096 H6 D128 dropout p=0.1 (ERNIE "
+                             "seq4096)", 3, 4096, 4096, 6, 6, 128, bf, False, dropout_p=0.1,
+                             timed=True),
+                 # the same without dropout: what the in-kernel dropout costs
+                 check_flash(ta, gen, "bf16 non-causal B3 S4096 H6 D128 (ERNIE seq4096, no "
+                             "dropout)", 3, 4096, 4096, 6, 6, 128, bf, False, timed=True)]
+        if any(r["variant"] != "wgmma" for r in ernie):
+            raise AssertionError("the ERNIE shapes' flash forward did not run the wgmma variant")
+        records["flash_fwd"]["by_shape"] += [{k: r[k] for k in fwd_keys} for r in ernie]
         check_flash(ta, gen, "bf16 causal S256 H8/2 D96 (a head dim of the CUDA-core variant only)",
                     1, 256, 256, 8, 2, 96, bf, True)
         check_flash(ta, gen, "f32 S40 H4/4 D64 non-causal", 2, 40, 40, 4, 4, 64, torch.float32, False)
@@ -1119,6 +1381,25 @@ def main(argv=None) -> int:
         records["flash_bwd_dq"], records["flash_bwd_dkdv"] = check_flash_bwd(
             ta, gen, "bf16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8, 128,
             torch.bfloat16, True, timed=True)
+        bwd_cases = [("bf16 causal B1 S4096 H32/8 D128 (train)",
+                      (records["flash_bwd_dq"], records["flash_bwd_dkdv"]))]
+        bwd_cases += [(case, check_flash_bwd(ta, gen, case, *shape, bf, False, dropout_p=p,
+                                             timed=True))
+                      for case, shape, p in (
+                          ("bf16 non-causal B64 S128 H12 D64 (ERNIE seq128)",
+                           (64, 128, 128, 12, 12, 64), 0.0),
+                          ("bf16 non-causal B3 S4096 H6 D128 dropout p=0.1 (ERNIE seq4096)",
+                           (3, 4096, 4096, 6, 6, 128), 0.1),
+                          ("bf16 non-causal B3 S4096 H6 D128 (ERNIE seq4096, no dropout)",
+                           (3, 4096, 4096, 6, 6, 128), 0.0))]
+        for i, kname in enumerate(("flash_bwd_dq", "flash_bwd_dkdv")):
+            if any(recs[i]["variant"] != "wgmma" for _, recs in bwd_cases):
+                raise AssertionError(f"an ERNIE shape's {kname} did not run the wgmma variant")
+            records[kname] = dict(records[kname], by_shape=[
+                dict(case=case, **{k: recs[i][k] for k in ("variant", "ms", "graph_ms", "plain_ms",
+                                                          "library_ms", "bound_ms",
+                                                          "max_abs_err")})
+                for case, recs in bwd_cases])
         check_flash_bwd(ta, gen, "bf16 causal B1 Sq300 Sk777 H32/8 D128 (ragged tiles)", 1, 300,
                         777, 32, 8, 128, bf, True)
         check_flash_bwd(ta, gen, "bf16 causal B1 Sq301 Sk777 H32/8 D128 (Sq % 4 != 0)", 1, 301,
@@ -1150,6 +1431,16 @@ def main(argv=None) -> int:
         records["fused_adamw"] = check_adamw_bucket(
             fo, gen, f"bf16 m2, AdamW wd 0.01, the {TRAIN_LAYERS}-layer training bucket", n_train,
             timed=True)
+        torch.cuda.empty_cache()
+        # the ERNIE buckets of ernie_seq128 (max positions 512) and
+        # ernie_seq4096 (max positions 4096)
+        ernie_b5 = [check_adamw_bucket(fo, gen, f"bf16 m2, AdamW wd 0.01, the ERNIE-3.0-base MLM "
+                                       f"bucket at max positions {max_pos}",
+                                       ernie_bucket_elems(ERNIE_BASE, max_pos), timed=True)
+                    for max_pos in (512, 4096)]
+        records["fused_adamw"]["by_shape"] = [
+            {k: r[k] for k in ("case", "n", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            for r in (records["fused_adamw"], *ernie_b5)]
         torch.cuda.empty_cache()
         n_large = train_bucket_elems(dict(LLAMA3_8B, num_hidden_layers=LARGE_BUCKET_LAYERS))
         check_adamw_bucket(fo, gen, f"bf16 m2, AdamW wd 0.01, a {LARGE_BUCKET_LAYERS}-layer bucket "
@@ -1187,6 +1478,12 @@ def main(argv=None) -> int:
         from paddle_tpu_torch.incubate.nn import functional as IF
 
         rms_norm_entry(ta, IF, state)
+    if "ernie_parity" in phases:
+        ernie_parity(ptt, ta)
+    if "ernie_seq128" in phases:  # bench.py:2302, the headline
+        ernie_train(ptt, ta, state, "ernie_seq128", (64,), 128, 12, 512, 0.0)
+    if "ernie_seq4096" in phases:  # bench.py:2151-2159
+        ernie_train(ptt, ta, state, "ernie_seq4096", (3, 2), 4096, 6, 4096, 0.1)
 
     k = "paddle_tpu_torch/ops/kernels/"
     sources = {
@@ -1198,7 +1495,8 @@ def main(argv=None) -> int:
         "rms_norm": (k + "rms_norm.cu", "paddle_tpu/incubate/nn/functional/__init__.py:67"),
     }
     by_path = {"serve_bf16": state.get("launches", {}), "train_bf16": state.get("train_launches", {}),
-               "fused_rms_norm": state.get("rms_norm_launches", {})}
+               "fused_rms_norm": state.get("rms_norm_launches", {}),
+               **state.get("ernie_launches", {})}
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = records.get(name, {})

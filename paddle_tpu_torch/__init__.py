@@ -1,5 +1,5 @@
-"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving and
-training slices).
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving, Llama
+training and ERNIE MLM pretraining slices).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -25,13 +25,19 @@ CUDA use.
     loss.backward()
     opt.step()
     opt.clear_grad()
+
+    # ERNIE MLM pretraining: bench.py's build_train_step runs as written,
+    # its step under paddle.jit.to_static (which runs it eagerly)
+    model = paddle.models.ErnieForMaskedLM(paddle.models.ErnieModel(hidden_dropout_prob=0.0))
+    loss, _ = model(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
 """
-from . import amp, framework, incubate, inference, models, nn, ops, optimizer, quantization, utils
+from . import amp, framework, incubate, inference, jit, models, nn, ops, optimizer, quantization, utils
 from .framework.device import get_device, set_device
 from .framework.dtype import get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
 from .framework.random import seed
+from .ops.creation import to_tensor
 
-__all__ = ["amp", "framework", "incubate", "inference", "models", "nn", "ops", "optimizer",
+__all__ = ["amp", "framework", "incubate", "inference", "jit", "models", "nn", "ops", "optimizer",
            "quantization", "utils", "get_device", "set_device", "get_default_dtype",
-           "set_default_dtype", "get_flags", "set_flags", "seed"]
+           "set_default_dtype", "get_flags", "set_flags", "seed", "to_tensor"]

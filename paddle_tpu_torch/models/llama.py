@@ -9,7 +9,7 @@ inference/kv_cache.PagedCacheView) a prefill (positions=None) writes the
 prompt's K/V into the pool pages and runs causal attention through the
 flash kernel; decode (one token) and extend (several) write at
 `positions` and read the whole context back through the paged-attention
-kernel. Weights are torch `nn.Linear` [out, in]; utils/convert.py carries
+kernel. Linear weights are torch's [out, in]; utils/convert.py carries
 the JAX package's [in, out] weights across.
 """
 from __future__ import annotations
@@ -81,7 +81,7 @@ def _rope(q, k, pos_base=10000.0, positions=None, max_pos=None):
 class LlamaAttention(nn.Module):
     def __init__(self, hidden_size, num_heads, num_kv_heads=None, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = hidden_size // num_heads
@@ -133,7 +133,7 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, hidden_size, intermediate_size, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.gate_proj = Linear(hidden_size, intermediate_size, **kw)
         self.up_proj = Linear(hidden_size, intermediate_size, **kw)
         self.down_proj = Linear(intermediate_size, hidden_size, **kw)
@@ -213,7 +213,7 @@ class LlamaForCausalLM(nn.Module):
         meta = dict(device="meta", dtype=dt)
         self.llama = LlamaModel(**config, **meta)
         hidden = self.config["hidden_size"]
-        self.lm_head = Linear(hidden, self.config["vocab_size"], bias=False, **meta)
+        self.lm_head = Linear(hidden, self.config["vocab_size"], bias_attr=False, **meta)
         if dev.type != "meta":
             self.to_empty(device=dev)
             self.reset_parameters(_random.generator(dev))
@@ -221,7 +221,7 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         for m in self.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, Linear):
                 # paddle's Linear draws over its [in, out] weight: same fans
                 _xavier_uniform_(m.weight, m.in_features, m.out_features, gen)
             elif isinstance(m, nn.Embedding):

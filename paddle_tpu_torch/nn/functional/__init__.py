@@ -1,5 +1,8 @@
-"""Functionals of the serving slice."""
+"""Functionals of the ported slices."""
+from .activation import gelu, relu, tanh
 from .attention import scaled_dot_product_attention
-from .norm import rms_norm
+from .common import dropout, embedding, linear
+from .norm import layer_norm, rms_norm
 
-__all__ = ["scaled_dot_product_attention", "rms_norm"]
+__all__ = ["gelu", "relu", "tanh", "scaled_dot_product_attention", "dropout", "embedding",
+           "linear", "layer_norm", "rms_norm"]

@@ -1,0 +1,90 @@
+"""Weight initializers and ParamAttr (counterpart of
+paddle_tpu/nn/initializer/__init__.py:43, 76, 174).
+
+An initializer is a callable (shape, dtype, device) -> tensor that draws
+from the framework generator of `device` (framework/random.py), in f32
+and then cast to `dtype`, as the JAX package draws f32 and casts. Torch's
+generators give other numbers than jax's threefry keys from the same
+seed: the distributions match, the values do not.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...framework import random as _random
+
+
+class Initializer:
+    def __call__(self, shape, dtype, device) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def __call__(self, shape, dtype, device):
+        return torch.full(tuple(shape), self.value, dtype=dtype, device=device)
+
+
+class Normal(Initializer):
+    def __init__(self, mean=0.0, std=1.0, name=None):
+        self.mean, self.std = mean, std
+
+    def __call__(self, shape, dtype, device):
+        x = torch.randn(tuple(shape), generator=_random.generator(device), device=device)
+        return (x * self.std + self.mean).to(dtype)
+
+
+class XavierUniform(Initializer):
+    """U(-l, l), l = sqrt(6 / (fan_in + fan_out)). The fans of a 2-D shape
+    are its two sizes, so the limit is the same for paddle's [in, out] and
+    torch's [out, in] Linear weight; a 1-D shape's are its size twice."""
+
+    def __call__(self, shape, dtype, device):
+        shape = tuple(shape)
+        if len(shape) not in (1, 2):
+            raise NotImplementedError("XavierUniform: only 1-D and 2-D shapes are ported")
+        limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+        x = torch.empty(shape, dtype=torch.float32, device=device)
+        return x.uniform_(-limit, limit, generator=_random.generator(device)).to(dtype)
+
+
+class ParamAttr:
+    """paddle.ParamAttr: a parameter's name and initializer. A learning
+    rate scale, a regularizer or need_clip=False is not ported (param
+    groups and per-parameter lr scales are later work) and raises."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0, regularizer=None,
+                 trainable=True, need_clip=True, do_model_average=False):
+        if learning_rate != 1.0 or regularizer is not None or not need_clip:
+            raise NotImplementedError(
+                "ParamAttr: learning_rate, regularizer and need_clip=False are not ported")
+        self.name = name
+        self.initializer = initializer
+        self.trainable = trainable
+
+
+def _resolve_attr(attr, is_bias, default_initializer):
+    """-> (initializer, trainable); initializer None for attr=False (no
+    parameter). The attr's initializer wins, then the default, then zeros
+    for a bias and XavierUniform for a weight."""
+    if attr is False:
+        return None, False
+    init, trainable = None, True
+    if isinstance(attr, ParamAttr):
+        init, trainable = attr.initializer, attr.trainable
+    elif isinstance(attr, Initializer):
+        init = attr
+    elif attr is not None and not isinstance(attr, str):
+        raise TypeError(f"attr must be a ParamAttr, an Initializer, a name, False or None; got {attr!r}")
+    if init is None:
+        init = default_initializer
+    if init is None:
+        init = Constant(0.0) if is_bias else XavierUniform()
+    return init, trainable
+
+
+__all__ = ["Initializer", "Constant", "Normal", "XavierUniform", "ParamAttr"]

@@ -1,4 +1,7 @@
-from .common import Linear
-from .norm import RMSNorm
+from .activation import Tanh
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm, RMSNorm
+from .transformer import MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer
 
-__all__ = ["Linear", "RMSNorm"]
+__all__ = ["Tanh", "Dropout", "Embedding", "Linear", "LayerNorm", "RMSNorm", "MultiHeadAttention",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -137,6 +137,10 @@ _TC_CASES = {
     "d128_dropout": (1, 256, 256, 8, 2, 128, True, 0.1),
     "d64_mha_noncausal": (2, 200, 200, 4, 4, 64, False, 0.0),
     "d64_mha_causal_dropout": (1, 333, 333, 4, 4, 64, True, 0.1),
+    # ERNIE's two bench shapes at a reduced batch: seq 128 with 12 heads of
+    # 64, seq 4096 with 6 heads of 128 and attention dropout 0.1; non-causal
+    "d64_ernie_seq128": (4, 128, 128, 12, 12, 64, False, 0.0),
+    "d128_ernie_seq4096_dropout": (1, 4096, 4096, 6, 6, 128, False, 0.1),
 }
 
 

@@ -77,7 +77,7 @@ def test_amp_casts_match_jax(level):
             "flce": JIF.fused_linear_cross_entropy(jx.reshape([16, 16]), jw,
                                                    paddle.to_tensor(labels)),
         }
-    lin = ptt.nn.Linear(16, 16, bias=False)
+    lin = ptt.nn.Linear(16, 16, bias_attr=False)
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(w.T))
     tx = torch.from_numpy(x)
