@@ -1,5 +1,5 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving, Llama
-training and ERNIE MLM pretraining slices).
+training, ERNIE MLM pretraining and ResNet ImageNet training slices).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -30,14 +30,26 @@ CUDA use.
     # its step under paddle.jit.to_static (which runs it eagerly)
     model = paddle.models.ErnieForMaskedLM(paddle.models.ErnieModel(hidden_dropout_prob=0.0))
     loss, _ = model(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+
+    # ResNet-50 ImageNet training: bench.py's build_resnet_step runs as written
+    model = paddle.vision.models.resnet50(num_classes=1000)
+    opt = paddle.optimizer.Momentum(0.1, parameters=model.parameters(), weight_decay=1e-4)
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = paddle.nn.functional.cross_entropy(model(images), labels)
+
+The convs, batch norms, pools and the Momentum update are plain torch ops
+(cuDNN convs on the card), as the JAX package leaves them to XLA.
 """
-from . import amp, framework, incubate, inference, jit, models, nn, ops, optimizer, quantization, utils
+from . import (amp, framework, incubate, inference, jit, models, nn, ops, optimizer, quantization,
+               regularizer, utils, vision)
 from .framework.device import get_device, set_device
 from .framework.dtype import get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
 from .framework.random import seed
 from .ops.creation import to_tensor
+from .ops.manipulation import flatten
 
 __all__ = ["amp", "framework", "incubate", "inference", "jit", "models", "nn", "ops", "optimizer",
-           "quantization", "utils", "get_device", "set_device", "get_default_dtype",
-           "set_default_dtype", "get_flags", "set_flags", "seed", "to_tensor"]
+           "quantization", "regularizer", "utils", "vision", "get_device", "set_device",
+           "get_default_dtype", "set_default_dtype", "get_flags", "set_flags", "seed", "to_tensor",
+           "flatten"]

@@ -11,10 +11,12 @@ CUDA and from the JAX package's. Each op of the port that the lists name
 casts its own inputs through `amp_cast_inputs`, as the JAX package's
 op-apply path does (paddle_tpu/core/apply.py:45-55); the cast sits inside
 autograd, so gradients come back in each input's own dtype. The ops that
-call it are linear, rms_norm, scaled_dot_product_attention,
-fused_linear_cross_entropy and fused_rms_norm. Elementwise ops (add,
-silu, RoPE) and the embedding lookup follow their inputs under every
-level: O2 does not cast them here as it does in the JAX package.
+call it are linear, conv1d/2d/3d, rms_norm, layer_norm, batch_norm,
+cross_entropy, scaled_dot_product_attention, fused_linear_cross_entropy
+and fused_rms_norm. Elementwise ops (add, relu, silu, RoPE), the pools,
+batch norm's statistics and the embedding lookup follow their inputs
+under every level: O2 does not cast them here as it does in the JAX
+package.
 """
 from __future__ import annotations
 

@@ -51,6 +51,18 @@ def convert_dtype(dtype) -> torch.dtype:
     raise TypeError(f"unsupported dtype {dtype!r}")
 
 
+def round_to(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float. A Python float in a
+    torch op on a 16-bit tensor enters the arithmetic at f32 precision; in
+    the JAX package it is a weak type and rounds to the tensor's dtype
+    first. Passing round_to(value, t.dtype) gives the JAX package's value."""
+    if dtype == torch.float32:
+        return float(np.float32(value))
+    if dtype == torch.float64:
+        return float(value)
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def set_default_dtype(d: Union[str, torch.dtype]) -> None:
     """The float type parameters are created in."""
     global _default_dtype

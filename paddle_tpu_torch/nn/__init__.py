@@ -3,9 +3,8 @@ from . import clip, functional, initializer
 from .clip import ClipGradByGlobalNorm
 from .initializer import ParamAttr
 from .layer import Layer
-from .layers import (Dropout, Embedding, LayerNorm, Linear, MultiHeadAttention, RMSNorm, Tanh,
-                     TransformerEncoder, TransformerEncoderLayer)
+from .layers import *  # noqa: F401,F403
+from .layers import __all__ as _layers_all
 
 __all__ = ["clip", "functional", "initializer", "ClipGradByGlobalNorm", "ParamAttr", "Layer",
-           "Dropout", "Embedding", "LayerNorm", "Linear", "MultiHeadAttention",
-           "RMSNorm", "Tanh", "TransformerEncoder", "TransformerEncoderLayer"]
+           *_layers_all]

@@ -1,5 +1,5 @@
 """Weight initializers and ParamAttr (counterpart of
-paddle_tpu/nn/initializer/__init__.py:43, 76, 174).
+paddle_tpu/nn/initializer/__init__.py:34, 43, 76, 174).
 
 An initializer is a callable (shape, dtype, device) -> tensor that draws
 from the framework generator of `device` (framework/random.py), in f32
@@ -27,6 +27,17 @@ class Constant(Initializer):
 
     def __call__(self, shape, dtype, device):
         return torch.full(tuple(shape), self.value, dtype=dtype, device=device)
+
+
+class Uniform(Initializer):
+    """U(low, high): the default of a conv weight (U(-k, k), k = 1/sqrt(fan_in))."""
+
+    def __init__(self, low=-1.0, high=1.0, name=None):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype, device):
+        x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+        return x.uniform_(self.low, self.high, generator=_random.generator(device)).to(dtype)
 
 
 class Normal(Initializer):
@@ -87,4 +98,4 @@ def _resolve_attr(attr, is_bias, default_initializer):
     return init, trainable
 
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierUniform", "ParamAttr"]
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierUniform", "ParamAttr"]

@@ -28,3 +28,8 @@ class Layer(torch.nn.Module):
         else:
             value = init(shape, dt, _device.resolve(device))
         return torch.nn.Parameter(value, requires_grad=trainable)
+
+    def add_sublayer(self, name, sublayer):
+        """paddle's name for add_module; returns the sublayer."""
+        self.add_module(str(name), sublayer)
+        return sublayer

@@ -5,6 +5,14 @@ from ..functional import activation as F
 from ..layer import Layer
 
 
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)
+
+
 class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)

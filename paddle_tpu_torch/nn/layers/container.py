@@ -1,0 +1,81 @@
+"""Sequential and LayerList (counterpart of
+paddle_tpu/nn/layers/container.py:12-79). Sublayers are named "0", "1",
+... (or by the names given), so parameter names are the JAX package's:
+`layer1.0.conv1.weight`, `layer1.0.downsample.0.weight`."""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+from ..layer import Layer
+
+
+class Sequential(Layer):
+    """Layers called in order. Built from layers, from (name, layer)
+    pairs, or from one OrderedDict of them."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], OrderedDict):
+            for name, layer in layers[0].items():
+                self.add_sublayer(name, layer)
+        else:
+            for i, layer in enumerate(layers):
+                if isinstance(layer, tuple):
+                    self.add_sublayer(layer[0], layer[1])
+                else:
+                    self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return Sequential(*list(self._modules.values())[idx])
+        return list(self._modules.values())[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
+
+class LayerList(Layer):
+    """A list of sublayers named by their index."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for layer in sublayers or ():
+            self.append(layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._modules.values())[idx])
+        return self._modules[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __setitem__(self, idx, layer):
+        self.add_sublayer(str(idx), layer)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+    def insert(self, index, layer):
+        items = list(self._modules.values())
+        items.insert(index, layer)
+        self._modules.clear()
+        for i, item in enumerate(items):
+            self.add_sublayer(str(i), item)

@@ -1,5 +1,6 @@
-"""Adam and AdamW, with the flat-bucket fused engine behind
-FLAGS_fused_optimizer (fused_engine.py)."""
-from .optimizer import Adam, AdamW, Optimizer
+"""SGD, Momentum, Adam and AdamW (Adam/AdamW with the flat-bucket fused
+engine behind FLAGS_fused_optimizer), and the LR schedulers (lr.py)."""
+from . import lr
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]

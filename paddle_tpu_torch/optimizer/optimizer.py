@@ -1,4 +1,4 @@
-"""Optimizer base, Adam and AdamW (counterpart of
+"""Optimizer base, SGD, Momentum, Adam and AdamW (counterpart of
 paddle_tpu/optimizer/optimizer.py).
 
 `step()` updates the parameters in place from their `.grad`. With
@@ -7,14 +7,18 @@ paddle_tpu/optimizer/optimizer.py).
 With it off they take the JAX package's per-tensor path in plain torch
 (the JAX package leaves that path to XLA): parameters of one
 (weight decay, lr scale) group that share a shape update as one stacked
-tensor (`_apply_fused`), a lone parameter alone (`_apply_one`). The
-update math and its rounding points are the JAX package's in both.
+tensor (`_apply_fused`), a lone parameter alone (`_apply_one`). SGD and
+Momentum update tensor by tensor, in plain torch, as the JAX package
+does. The update math and its rounding points are the JAX package's.
 
-State moves between the two paths (and between buckets when the set of
-parameters with a gradient changes) through `_pending_state`, as in the
-JAX package. Not ported yet: LR schedulers, `state_dict`/`set_state_dict`,
-param groups and per-param lr scales or regularizers, the optimizers
-other than Adam/AdamW.
+The learning rate is a number or an LRScheduler (lr.py); `step()` reads
+the scheduler's `last_lr` and rounds it to f32, as the JAX package does.
+`weight_decay` is a float, an L2Decay or an L1Decay (regularizer.py).
+State moves between the two Adam paths (and between buckets when the set
+of parameters with a gradient changes) through `_pending_state`, as in
+the JAX package. Not ported yet: `state_dict`/`set_state_dict`, param
+groups (a list of dicts raises) and per-param lr scales or regularizers,
+the optimizers other than SGD, Momentum, Adam and AdamW.
 """
 from __future__ import annotations
 
@@ -24,9 +28,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..framework import dtype as _dtype
 from ..framework import flags as _flags
 from ..framework import random as _random
 from ..ops.fused_optimizer import _sr_bits_flat, _update_math
+from ..regularizer import L1Decay
+from .lr import LRScheduler
 
 
 def _f32(x) -> float:
@@ -35,7 +42,10 @@ def _f32(x) -> float:
 
 
 def _wd_value(weight_decay) -> float:
-    return float(weight_decay or 0.0)
+    """The coefficient of a float, an L1Decay/L2Decay or None."""
+    if weight_decay is None:
+        return 0.0
+    return float(getattr(weight_decay, "_coeff", weight_decay))
 
 
 def _sr_round(x32: torch.Tensor, dtype: torch.dtype, seed: int) -> torch.Tensor:
@@ -64,10 +74,12 @@ class Optimizer:
                  name=None):
         if parameters is None:
             raise ValueError("parameters must be provided (dygraph mode)")
-        if not isinstance(learning_rate, numbers.Real):
-            raise TypeError("learning_rate must be a number (LR schedulers are not ported yet)")
+        self._lr_scheduler = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        if self._lr_scheduler is None and not isinstance(learning_rate, numbers.Real):
+            raise TypeError(f"learning_rate must be a number or an LRScheduler, got {learning_rate!r}")
         self._params = self._build_params(parameters)
-        self._lr = _f32(learning_rate)  # the JAX package keeps it as an f32 scalar
+        # the JAX package keeps it as an f32 scalar
+        self._lr = _f32(self._lr_scheduler.last_lr if self._lr_scheduler else learning_rate)
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
         self._accumulators: dict = defaultdict(dict)  # name -> {id(param): tensor or f32}
@@ -83,6 +95,9 @@ class Optimizer:
         self._param_names = {}
         params = []
         for x in parameters:
+            if isinstance(x, dict):
+                raise NotImplementedError("param groups (a list of dicts) are not ported yet "
+                                          "(ROADMAP Queue A item 2); pass the parameters")
             if isinstance(x, tuple):
                 self._param_names[id(x[1])] = x[0]
                 x = x[1]
@@ -91,10 +106,21 @@ class Optimizer:
 
     # ---- lr ----
     def get_lr(self) -> float:
+        if self._lr_scheduler is not None:
+            return self._lr_scheduler.last_lr
         return self._lr
 
     def set_lr(self, value: float) -> None:
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = _f32(value)
+
+    def set_lr_scheduler(self, scheduler) -> None:
+        self._lr_scheduler = scheduler
+
+    def _sync_lr(self) -> None:
+        if self._lr_scheduler is not None:
+            self._lr = _f32(self._lr_scheduler.last_lr)
 
     def _lr_value(self, lr_scale) -> float:
         """The lr of an entry; every entry's scale is 1.0 (per-param lr
@@ -123,6 +149,7 @@ class Optimizer:
     # ---- the step ----
     @torch.no_grad()
     def step(self) -> None:
+        self._sync_lr()
         self._step_impl()
 
     def _step_impl(self):
@@ -144,6 +171,20 @@ class Optimizer:
 
     def _apply_one(self, param, grad, weight_decay, lr_scale):
         raise NotImplementedError
+
+    @staticmethod
+    def _decayed_grad(param, grad, weight_decay):
+        """The weight decay folded into the gradient (SGD and Momentum):
+        grad + wd * param for a float or an L2Decay, grad + wd * sign(param)
+        for an L1Decay, in the gradient's type."""
+        wd = _wd_value(weight_decay)
+        if not wd:
+            return grad
+        pv = param.to(grad.dtype)
+        wd = _dtype.round_to(wd, grad.dtype)
+        if isinstance(weight_decay, L1Decay):
+            return grad + wd * torch.sign(pv)
+        return grad + wd * pv
 
     def clear_grad(self, set_to_zero=False) -> None:
         for p in self._params:
@@ -167,6 +208,42 @@ class Optimizer:
         self._fused_buckets.clear()
         if self._flat_engine is not None:
             self._flat_engine.defuse_all()
+
+
+class SGD(Optimizer):
+    """p -= lr * (grad + decay), in p's type."""
+
+    def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+
+    def _apply_one(self, p, g, wd, lr_scale):
+        gv = self._decayed_grad(p, g, wd)
+        lr = _dtype.round_to(self._lr_value(lr_scale), p.dtype)
+        p.copy_(p - lr * gv.to(p.dtype))
+
+
+class Momentum(Optimizer):
+    """v = momentum * v + (grad + decay) in the velocity's type (f32 for an
+    f32 or bf16 param); p -= lr * v, or with use_nesterov
+    p -= lr * (grad + decay + momentum * v), in p's type."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None, use_nesterov=False,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip, name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _apply_one(self, p, g, wd, lr_scale):
+        vel = self._add_accumulator("velocity", p)
+        gv = self._decayed_grad(p, g, wd)
+        v_new = _dtype.round_to(self._momentum, vel.dtype) * vel + gv.to(vel.dtype)
+        if self._nesterov:
+            upd = gv.to(p.dtype) + _dtype.round_to(self._momentum, p.dtype) * v_new.to(p.dtype)
+        else:
+            upd = v_new.to(p.dtype)
+        vel.copy_(v_new)
+        p.copy_(p - _dtype.round_to(self._lr_value(lr_scale), p.dtype) * upd)
 
 
 class Adam(Optimizer):

@@ -1,10 +1,12 @@
 """Weight carry-over between the JAX package and the port.
 
 paddle's Linear stores its weight [in, out] (paddle_tpu/nn/layers/common.py:16);
-the port's Linear stores torch's [out, in]. Linear weights (Llama's and
-ERNIE's, by the name of their layer) are transposed on the way across;
-embeddings ([vocab, hidden] in both), norm weights and biases are not.
-Parameter names are the same in both packages.
+the port's Linear stores torch's [out, in]. Linear weights (Llama's,
+ERNIE's and ResNet's `fc`, by the name of their layer) are transposed on
+the way across; embeddings ([vocab, hidden] in both), conv weights
+([out, in/groups, *kernel] in both), norm weights, biases and the batch
+norms' `_mean`/`_variance` buffers are not. Parameter and buffer names are
+the same in both packages.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from ..framework.io import numpy_to_tensor, tensor_to_numpy
 
 _LINEAR_WEIGHT = re.compile(r"(^|\.)(q_proj|k_proj|v_proj|o_proj|out_proj|gate_proj|up_proj|down_proj"
-                            r"|lm_head|linear1|linear2|dense|transform)\.weight$")
+                            r"|lm_head|linear1|linear2|dense|transform|fc)\.weight$")
 
 
 def is_linear_weight(name: str) -> bool:
