@@ -27,6 +27,24 @@ Phases, one line each (any failure raises and exits non-zero):
                  O1 bf16, fused AdamW with a bf16 moment2: 5 steps on one
                  batch; losses finite and falling, exact launches per step,
                  ms/step, tokens/s, peak memory, and a profiled 2-step split
+  train_recompute bench.py's Llama step as written (_build_llama_at) with
+                 recompute=True and micro=2 at 4 layers, seq 4096, train_bf16's
+                 optimizer: exact launches a step (the flash forward twice a
+                 layer per micro-batch), ms/step, tokens/s, the forward+backward
+                 and the optimizer-step peaks beside train_bf16's
+  train_fp16_scaler AMP O1 float16 at 4 layers, seq 4096, a GradScaler (2**15,
+                 incr every 2, decr every 1), two param groups and an lr scale
+                 (three fused AdamW buckets), 8 steps with an inf injected by a
+                 grad hook in step 6: skipped steps leave every tensor and
+                 @step bit-identical, the scale follows the update rule, the
+                 flash kernels run float16 (the wgmma variant)
+  train_o2_resume amp.decorate O2 bf16 at 1 layer, seq 4096, LinearWarmup over
+                 CosineAnnealingDecay, a GradScaler: 3 steps, paddle.save,
+                 everything built anew, paddle.load, 2 steps, against two
+                 uninterrupted 5-step runs (their distance is the limit)
+  amp_parity     the head_dim-64 tiny Llama on the card and on the CPU, 2 steps
+                 each: O1 float16 with a GradScaler, O2 bf16 (decorate), and
+                 recompute with 2 micro-batches in O1 bf16
   rms_norm_entry incubate fused_rms_norm, forward and backward, at 4096 x 4096
                  bf16 with an f32 weight: one kernel launch; output and grads
                  against the plain version through autograd
@@ -63,8 +81,10 @@ against the plain backward and against autograd through the plain forward;
 every flash case logs the kernel variant it ran, ops.attention.kernel_variant),
 the fused AdamW (64M-element buckets; the Llama training bucket and ERNIE's
 two, at max positions 512 and 4096, slice by slice; the slices of a bucket past 2^31 elements) and RMSNorm, each
-against its plain version.
-Then a {"kernels": [...]} line and, last, the device line the checker reads.
+against its plain version; float16 cases of B1-B3 (the Llama S4096 and ERNIE
+S128 shapes, dropout, ragged tiles, the CUDA-core head dim) under TOL["fp16"],
+timed beside torch's sdpa in float16, and bf16-P (O2) cases of the fused AdamW.
+Then a {"kernels": [...]} line (with a row for each float16 flash kernel) and, last, the device line the checker reads.
 """
 from __future__ import annotations
 
@@ -85,8 +105,8 @@ import warnings
 import numpy as np
 import torch
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# NVIDIA H100 SXM data sheet, dense: bf16 and fp16 tensor cores, f32 CUDA cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 LLAMA3_8B = dict(vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
@@ -127,7 +147,19 @@ TOL = {
     # and 0.0043 per row.
     "f32_grad": dict(rtol=1e-5, atol_rms=2e-5, row=4e-6, floor=0.1),
     "bf16_grad": dict(rtol=2e-2, atol_rms=5e-2, row=1e-2, floor=0.1),
+    # float16 (B1-B3; 3 more mantissa bits than bf16, so p and ds round
+    # finer on both sides). Worst measured on an H100 over the fp16 cases:
+    # forward elements at 0.185 of (5e-3, 1e-2) and rows 8.0e-4; grads
+    # (own-row scale) elements at 0.233 of fp16_grad's and rows 7.8e-4
+    "fp16": dict(rtol=4e-3, atol_rms=8e-3, row=2e-3),
+    "fp16_grad": dict(rtol=4e-3, atol_rms=5e-3, row=2e-3, floor=0.1),
 }
+
+
+def tol_key(dtype, grad=False) -> str:
+    """The TOL entry of a kernel's storage type."""
+    key = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+    return key + "_grad" if grad else key
 # p, m and an f32 v of the fused AdamW against its plain version: one f32
 # ulp relative. Both round every operation once in the same order; the
 # measured difference on an H100 is 0 (and bf16 moment2 bits 100% equal).
@@ -137,8 +169,8 @@ ADAMW_F32_RTOL = 2.0 ** -22
 # take delta = rowsum(dO * O) from the stored O, which in bf16 is rounded:
 # that shifts every ds of a row by ~2^-9 |dO||O| whatever the row's size,
 # so a row-by-row bound does not fit; autograd rounds neither O nor ds.
-# Worst measured on an H100: f32 6.6e-7, bf16 3.7e-3.
-GRAD_VS_AUTOGRAD_REL = {torch.float32: 3e-6, torch.bfloat16: 1e-2}
+# Worst measured on an H100: f32 6.6e-7, bf16 3.7e-3, fp16 5.0e-4.
+GRAD_VS_AUTOGRAD_REL = {torch.float32: 3e-6, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 LOGIT_REL_BOUND = 5e-2  # ||cached - recomputed|| / ||recomputed|| per step, bf16 over 32 layers
 
 
@@ -267,7 +299,7 @@ def check_flash(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_p=0.
     want, lse_w = ta._flash_plain(q, k, v, causal, scale, dropout_p, 1234)
     torch.cuda.synchronize()
     rec = dict(case=name, variant=ta.kernel_variant("flash_fwd", dtype, d),
-               **compare(name, got, want, TOL["f32" if dtype == torch.float32 else "bf16"]))
+               **compare(name, got, want, TOL[tol_key(dtype)]))
     rec["lse_err"] = (lse - lse_w).abs().max().item()
     if not rec["lse_err"] <= 1e-4:
         raise AssertionError(f"{name}: lse disagrees with the plain version: {rec}")
@@ -645,6 +677,54 @@ def predictor_f32(ptt):
 # training kernels
 # ---------------------------------------------------------------------------
 
+FP16_KEYS = ("case", "variant", "ms", "graph_ms", "plain_ms", "library_ms", "bound_ms",
+             "max_abs_err")
+
+
+def fp16_flash_checks(ta, gen) -> dict:
+    """float16 cases of B1 (the Llama S4096 and ERNIE S128 shapes, causal and
+    not, with dropout) and of B2/B3 through autograd, against their plain
+    versions under TOL["fp16"]; the S4096 and S128 cases timed beside torch's
+    sdpa in float16. Returns the records of the kernels line's float16 rows."""
+    f16 = torch.float16
+    fwd = [check_flash(ta, gen, "fp16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32, 8,
+                       128, f16, True, timed=True),
+           check_flash(ta, gen, "fp16 non-causal B64 S128 H12 D64 (ERNIE seq128)", 64, 128, 128,
+                       12, 12, 64, f16, False, timed=True)]
+    check_flash(ta, gen, "fp16 causal dropout p=0.1 S2048 H32/8 D128", 1, 2048, 2048, 32, 8, 128,
+                f16, True, dropout_p=0.1)
+    check_flash(ta, gen, "fp16 non-causal dropout p=0.1 B64 S128 H12 D64", 64, 128, 128, 12, 12,
+                64, f16, False, dropout_p=0.1)
+    check_flash(ta, gen, "fp16 causal B2 Sq300 Sk777 H32/8 D128 (ragged tiles)", 2, 300, 777, 32,
+                8, 128, f16, True)
+    check_flash(ta, gen, "fp16 causal S256 H8/2 D96 (the CUDA-core variant)", 1, 256, 256, 8, 2,
+                96, f16, True)
+    bwd = [check_flash_bwd(ta, gen, "fp16 causal B1 S4096 H32/8 D128 (train)", 1, 4096, 4096, 32,
+                           8, 128, f16, True, timed=True),
+           check_flash_bwd(ta, gen, "fp16 non-causal B64 S128 H12 D64 (ERNIE seq128)", 64, 128,
+                           128, 12, 12, 64, f16, False, timed=True)]
+    check_flash_bwd(ta, gen, "fp16 dropout p=0.1 S256 H8/2 D128 causal", 1, 256, 256, 8, 2, 128,
+                    f16, True, dropout_p=0.1)
+    check_flash_bwd(ta, gen, "fp16 non-causal dropout p=0.1 B2 S512 H12 D64", 2, 512, 512, 12, 12,
+                    64, f16, False, dropout_p=0.1)
+    check_flash_bwd(ta, gen, "fp16 causal B1 Sq301 Sk777 H32/8 D128 (ragged tiles)", 1, 301, 777,
+                    32, 8, 128, f16, True)
+    check_flash_bwd(ta, gen, "fp16 causal S256 H8/2 D128, loss on out and lse", 1, 256, 256, 8, 2,
+                    128, f16, True, use_lse=True)
+    check_flash_bwd(ta, gen, "fp16 causal S256 H8/2 D96 (the CUDA-core variant)", 1, 256, 256, 8,
+                    2, 96, f16, True)
+    if any(r["variant"] != "wgmma" for r in fwd) or any(
+            r["variant"] != "wgmma" for recs in bwd for r in recs):
+        raise AssertionError("a float16 Llama or ERNIE shape did not run the wgmma variant")
+    out = {"flash_fwd": dict(fwd[0], by_shape=[{k: r.get(k) for k in FP16_KEYS} for r in fwd])}
+    for i, kname in enumerate(("flash_bwd_dq", "flash_bwd_dkdv")):
+        rows = [dict(case=case, **{k: recs[i].get(k) for k in FP16_KEYS if k != "case"})
+                for case, recs in zip(("fp16 causal B1 S4096 H32/8 D128 (train)",
+                                       "fp16 non-causal B64 S128 H12 D64 (ERNIE seq128)"), bwd)]
+        out[kname] = dict(bwd[0][i], by_shape=rows)
+    return out
+
+
 def causal_pairs(b, sq, sk, h, causal) -> int:
     """Visible (query, key) pairs over all heads."""
     off = sk - sq
@@ -682,12 +762,11 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     want_ag = torch.autograd.grad([out_p, lse_p] if use_lse else [out_p], pl, cots)
     del out_p, lse_p, pl
     torch.cuda.synchronize()
-    f32 = dtype == torch.float32
     rec = dict(case=name, variant={kn: ta.kernel_variant(kn, dtype, d)
                                    for kn in ("flash_bwd_dq", "flash_bwd_dkdv")})
     for gname, gg, w, wa in zip(("dq", "dk", "dv"), got, want, want_ag):
         rec[gname] = compare(f"{name} {gname} vs plain backward", gg, w,
-                             TOL["f32_grad" if f32 else "bf16_grad"])
+                             TOL[tol_key(dtype, grad=True)])
         rel = ((gg.float() - wa.float()).norm() / wa.float().norm()).item()
         rec[gname + "_vs_autograd_rel_l2"] = rel
         if not rel <= GRAD_VS_AUTOGRAD_REL[dtype]:
@@ -719,7 +798,8 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
         from paddle_tpu_torch.ops.kernels import build
         use_drop = dropout_p > 0.0
         cc_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                   delta.data_ptr(), dq_out.data_ptr(), 1, b, sq, sk, h, hkv, d, int(causal),
+                   delta.data_ptr(), dq_out.data_ptr(), ta._DTYPE_CODE[dtype], b, sq, sk, h, hkv, d,
+                   int(causal),
                    scale, int(use_drop), seed, ta._keep_threshold(dropout_p) if use_drop else 0,
                    1.0 / (1.0 - dropout_p), 0)
         dq_rec["cuda_core_ms"] = time_ms(lambda: build.check(build.function("flash_bwd_dq")(
@@ -733,10 +813,14 @@ def check_flash_bwd(ta, gen, name, b, sq, sk, h, hkv, d, dtype, causal, dropout_
     return dq_rec, kv_rec
 
 
-ADAMW_CASES = [  # (name, moment2 dtype, decoupled, wd, clip scale)
-    ("f32 m2, AdamW wd 0.01, clip 0.37", torch.float32, True, 0.01, 0.37),
-    ("bf16 m2, AdamW wd 0.01, clip 1", torch.bfloat16, True, 0.01, 1.0),
-    ("bf16 m2, Adam (coupled) wd 0.01, clip 0.37", torch.bfloat16, False, 0.01, 0.37),
+ADAMW_CASES = [  # (name, moment2 dtype, decoupled, wd, clip scale, param dtype)
+    ("f32 m2, AdamW wd 0.01, clip 0.37", torch.float32, True, 0.01, 0.37, torch.float32),
+    ("bf16 m2, AdamW wd 0.01, clip 1", torch.bfloat16, True, 0.01, 1.0, torch.float32),
+    ("bf16 m2, Adam (coupled) wd 0.01, clip 0.37", torch.bfloat16, False, 0.01, 0.37, torch.float32),
+    # amp.decorate(level="O2"): bf16 params, no f32 master copy
+    ("bf16 P (O2), bf16 m2, AdamW wd 0.01, clip 0.37", torch.bfloat16, True, 0.01, 0.37,
+     torch.bfloat16),
+    ("bf16 P (O2), f32 m2, AdamW wd 0, clip 1", torch.float32, True, 0.0, 1.0, torch.bfloat16),
 ]
 
 
@@ -747,9 +831,9 @@ ADAMW_SLICE = 64 * 2 ** 20  # elements per plain-version call on a large bucket
 LARGE_BUCKET_LAYERS = 9
 
 
-def adamw_bucket(gen, n, m2_dtype, pad):
+def adamw_bucket(gen, n, m2_dtype, pad, p_dtype=torch.float32):
     rn = lambda: torch.randn(n, generator=gen, device="cuda")
-    p, g, m = rn() * 0.02, rn() * 1e-3, rn() * 1e-4
+    p, g, m = (rn() * 0.02).to(p_dtype), rn() * 1e-3, rn() * 1e-4
     v = (rn() * 1e-4).square().to(m2_dtype)
     for t in (p, g, m, v):
         t[n - pad:] = 0  # padding lanes, as the engine pads a bucket
@@ -799,8 +883,8 @@ def check_fused_adamw(fo, gen, n=64 * 2 ** 20):
     version, in each case of ADAMW_CASES."""
     pad = fo.PAD_ELEMS // 2
     c1, c2 = 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3
-    for name, m2, decoupled, wd, clip in ADAMW_CASES:
-        p, m, v, g = adamw_bucket(gen, n, m2, pad)
+    for name, m2, decoupled, wd, clip, p_dtype in ADAMW_CASES:
+        p, m, v, g = adamw_bucket(gen, n, m2, pad, p_dtype)
         hp = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=wd, decoupled=decoupled)
         scal = fo._scalars(1e-4, clip, c1, c2, "cuda")
         want = fo._reference_apply(p, m, v, g, scal, ADAMW_SEED, 0.9, 0.999, 1e-8, wd, decoupled,
@@ -833,7 +917,7 @@ def ernie_bucket_elems(cfg, max_pos=512) -> int:
     return (v + max_pos + 4 + 2) * h + cfg["num_hidden_layers"] * layer + h * h + 3 * h + v
 
 
-def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
+def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False, p_dtype=torch.float32):
     """The wrapper on a bucket of `n_real` elements as the training step
     calls it (bf16 m2, AdamW wd 0.01, clip 1; one launch), held against the
     plain version slice by slice, each slice hashed at its flat offset:
@@ -844,7 +928,7 @@ def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
     library call is torch._fused_adamw_ on the same f32 p, m, g with an f32
     v, as a list of the same slices."""
     n = fo.pad_to_tile(n_real)
-    p, m, v, g = adamw_bucket(gen, n, torch.bfloat16, n - n_real)
+    p, m, v, g = adamw_bucket(gen, n, torch.bfloat16, n - n_real, p_dtype)
     kw = dict(lr=1e-4, clip_scale=1.0, c1=1.0 - 0.9 ** 3, c2=1.0 - 0.999 ** 3, seed=ADAMW_SEED,
               beta1=0.9, beta2=0.999, eps=1e-8, wd=0.01, decoupled=True)
     hp = (ADAMW_SEED, 0.9, 0.999, 1e-8, 0.01, True, True)
@@ -871,11 +955,13 @@ def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
             s = slice(i, i + ADAMW_SLICE)
             fo._reference_apply(p[s], m[s], v[s], g[s], scal, *hp, base=i)
 
-    v32 = v.float()
+    # torch's fused AdamW takes one dtype for every list: f32, or with a
+    # bf16 P (O2) bf16 g, m and v (it computes in f32 inside)
+    lib_g, lib_m, lib_v = (t.to(p.dtype) for t in (g, m, v))
     parts = lambda t: list(t.split(ADAMW_SLICE))
     steps = [torch.tensor(3.0, device="cuda") for _ in parts(p)]
-    lib = lambda: torch._fused_adamw_(parts(p), parts(g), parts(m), parts(v32), [], steps, lr=1e-4,
-                                      beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+    lib = lambda: torch._fused_adamw_(parts(p), parts(lib_g), parts(lib_m), parts(lib_v), [], steps,
+                                      lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
                                       amsgrad=False, maximize=False)
     bnd, by = bound_ms(20.0 * n, nbytes(p, m, v, g) + nbytes(p, m, v), torch.float32)
     rec = dict(rec, ms=time_ms(lambda: fo.fused_adamw_apply(p, m, v, g, **kw), iters=10, warmup=2),
@@ -883,7 +969,8 @@ def check_adamw_bucket(fo, gen, name, n_real, starts=None, timed=False):
                bound_ms=bnd, bound_by=by, bytes_per_elem=(nbytes(p, m, v, g) + nbytes(p, m, v)) / n)
     log("kernel fused_adamw timing", n=n, ms=rec["ms"], plain_ms=rec["plain_ms"],
         library_ms=rec["library_ms"], bound_ms=bnd, bound_by=by, bytes_per_elem=rec["bytes_per_elem"],
-        note="library: torch._fused_adamw_ with an f32 moment2 (28 B/elem), no bf16 form")
+        note="library: torch._fused_adamw_ with an f32 moment2 (28 B/elem), no bf16 form"
+        if p.dtype == torch.float32 else "library: torch._fused_adamw_ on bf16 p, g, m and v")
     return rec
 
 
@@ -1066,6 +1153,23 @@ TRAIN_PER_STEP = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
                   "flash_bwd_dkdv": TRAIN_LAYERS, "fused_adamw": 1}
 
 
+def step_peaks(fwd_bwd, opt, step=None) -> dict:
+    """Device memory peaks of one training step in GB: the forward and
+    backward (`fwd_bwd`), then the optimizer step (`step`, default
+    opt.step) and clear_grad, the peak reset before each (the step's flat
+    copies of P and G set the second)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    fb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    (step or opt.step)()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    return dict(fwd_bwd_peak_gb=fb, step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def train_bf16(ptt, ta, state, steps=5):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
 
@@ -1102,15 +1206,531 @@ def train_bf16(ptt, ta, state, steps=5):
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"train_bf16: losses not finite and falling: {losses}")
     peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def fwd_bwd():
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+
+    peaks = step_peaks(fwd_bwd, opt)
     prof = profile_train(lambda: train_step(ptt, model, opt, ids, ids), step_ms)
     state["train_launches"] = launches
+    state["train_bf16"] = dict(ms_per_step=step_ms, tokens_per_sec=TRAIN_SEQ / (step_ms / 1e3),
+                               **peaks)
     log("train_bf16", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=1,
         params_b=sum(p.numel() for p in model.parameters()) / 1e9, init_s=init_s,
         losses=losses, ms_per_step=step_ms, tokens_per_sec=TRAIN_SEQ / (step_ms / 1e3),
-        peak_mem_gb=peak, launches=launches, launches_per_step=per_step[0])
+        peak_mem_gb=peak, launches=launches, launches_per_step=per_step[0], **peaks)
     log("train_bf16 profile", **prof)
-    del model, opt
+    del model, opt, fwd_bwd
+    gc.collect()  # the optimizer and its flat engine hold each other: collect the cycle
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the rest of training: recompute with micro-batches, float16 under a
+# GradScaler, O2 with a checkpoint and resume, AMP parity card vs CPU
+# ---------------------------------------------------------------------------
+
+RECOMPUTE_MICRO = 2
+# per step: the forward and the backward's replay launch the flash forward
+# once a layer each, for each micro-batch
+RECOMPUTE_PER_STEP = {"flash_fwd": 2 * RECOMPUTE_MICRO * TRAIN_LAYERS,
+                      "flash_bwd_dq": RECOMPUTE_MICRO * TRAIN_LAYERS,
+                      "flash_bwd_dkdv": RECOMPUTE_MICRO * TRAIN_LAYERS, "fused_adamw": 1}
+
+
+def build_llama_at(ptt, layers, seq=TRAIN_SEQ, recompute=False, micro=1):
+    """bench.py:480-510 (_build_llama_at) with the port: the Llama-3-8B
+    width at `layers`, seed 0, `micro` rows of random ids and labels from
+    seed 0, and the step through to_static as written (`micro`
+    grad-accumulated micro-batches of one row under AMP O1 bf16, each
+    (loss / micro).backward(), then one optimizer step). The optimizer is
+    train_bf16's (FLAGS_fused_optimizer, AdamW 1e-4, wd 0.01, bf16
+    moment2), so recompute and micro-batching are the only differences.
+    -> (model, opt, ids, labels, the micro-batch loop, the step)."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    batch, hidden = micro, 4096
+    ptt.seed(0)
+    model = LlamaForCausalLM(vocab_size=32000, hidden_size=hidden, num_hidden_layers=layers,
+                             num_attention_heads=32, num_key_value_heads=8,
+                             intermediate_size=14336, recompute=recompute)
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    opt = ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    ids = ptt.to_tensor(rng.randint(0, 32000, (batch, seq)).astype(np.int64))
+    labels = ptt.to_tensor(rng.randint(0, 32000, (batch, seq)).astype(np.int64))
+
+    def micro_batches(ids, labels):
+        loss = None
+        for i in range(micro):  # micro=1 degenerates to the plain step
+            with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss, _ = model(ids[i:i + 1], labels=labels[i:i + 1])
+            (loss * (1.0 / micro)).backward()  # grads accumulate across rows
+        return loss
+
+    @ptt.jit.to_static
+    def train_step(ids, labels):
+        loss = micro_batches(ids, labels)
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, ids, labels, micro_batches, train_step
+
+
+def train_recompute(ptt, ta, state, steps=5):
+    """The bench's Llama step with recompute=True and micro=2 at 4 layers,
+    seq 4096: exact launches a step, losses finite and falling, ms/step and
+    tokens/s (8192 tokens a step), the forward+backward and step peaks,
+    beside train_bf16's from the same call."""
+    gc.collect()  # what earlier phases left in cycles: the peaks measured are this phase's own
+    torch.cuda.empty_cache()
+    model, opt, ids, labels, fwd_bwd, step = build_llama_at(
+        ptt, TRAIN_LAYERS, TRAIN_SEQ, recompute=True, micro=RECOMPUTE_MICRO)
+    torch.cuda.synchronize()
+    ta.reset_launch_counts()
+    losses, per_step = [], []
+    for i in range(steps):
+        if i == 1:  # step 1 builds the bucket
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(ta.LAUNCHES)
+        losses.append(step(ids, labels))
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in RECOMPUTE_PER_STEP})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    launches = dict(ta.LAUNCHES)
+    losses = [x.item() for x in losses]
+    if any(d != RECOMPUTE_PER_STEP for d in per_step):
+        raise AssertionError(f"train_recompute: launches per step {per_step} != "
+                             f"{RECOMPUTE_PER_STEP}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_recompute: losses not finite and falling: {losses}")
+    peaks = step_peaks(lambda: fwd_bwd(ids, labels), opt)
+    prof = profile_train(lambda: step(ids, labels), step_ms)
+    tokens = RECOMPUTE_MICRO * TRAIN_SEQ
+    state["recompute_launches"] = launches
+    log("train_recompute", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, micro_batches=RECOMPUTE_MICRO,
+        recompute=True, tokens_per_step=tokens, losses=losses, ms_per_step=step_ms,
+        tokens_per_sec=tokens / (step_ms / 1e3), launches=launches,
+        launches_per_step=per_step[0], **peaks, train_bf16_same_call=state.get("train_bf16"))
+    log("train_recompute profile", **prof)
+    del model, opt, fwd_bwd, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+FP16_STEPS, FP16_INF_STEP = 8, 6  # the grad hook's inf lands in step 6 of 8 (1-based)
+FP16_SCALER = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+
+
+def expected_scales(found, init_loss_scaling, incr_every_n_steps, decr_every_n_nan_or_inf,
+                    incr_ratio=2.0, decr_ratio=0.5):
+    """The scale after each step under the JAX package's GradScaler.update
+    (paddle_tpu/amp/__init__.py:249-264) for a sequence of found-inf flags."""
+    scale, good, bad, out = np.float32(init_loss_scaling), 0, 0, []
+    for f in found:
+        good, bad = (0, bad + 1) if f else (good + 1, 0)
+        if bad >= decr_every_n_nan_or_inf:
+            scale, bad = max(np.float32(scale * np.float32(decr_ratio)), np.float32(1.0)), 0
+        if good >= incr_every_n_steps:
+            scale, good = np.float32(scale * np.float32(incr_ratio)), 0
+        out.append(float(scale))
+    return out
+
+
+def optimizer_snapshot(model, opt) -> dict:
+    """Clones of every parameter and flat-bucket moment, the beta powers and
+    `@step` (what a skipped step must leave bit for bit)."""
+    eng = opt._flat_engine
+    buckets = {k: (b["moment1"].clone(), b["moment2"].clone(), float(b["beta1_pow"]),
+                   float(b["beta2_pow"])) for k, b in (eng.buckets.items() if eng else ())}
+    return dict(params=[p.detach().clone() for p in model.parameters()], buckets=buckets,
+                step=opt._step_count)
+
+
+def snapshot_equal(a, b) -> bool:
+    """Snapshot `b` (after a skipped step) holds `a`'s values bit for bit;
+    a bucket the skipped step built (a first step's) holds its fill: zero
+    moments, beta powers 1, as the JAX package's blended-back step leaves it."""
+    if a["step"] != b["step"] or not set(a["buckets"]) <= set(b["buckets"]):
+        return False
+    if not all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])):
+        return False
+    for k, (n1, n2, c1, c2) in b["buckets"].items():
+        if k not in a["buckets"]:
+            if n1.any() or n2.any() or (c1, c2) != (1.0, 1.0):
+                return False
+            continue
+        m1, m2, b1, b2 = a["buckets"][k]
+        if not (torch.equal(m1, n1) and torch.equal(m2.view(torch.int16), n2.view(torch.int16))
+                and b1 == c1 and b2 == c2):
+            return False
+    return True
+
+
+def train_fp16_scaler(ptt, ta, state):
+    """AMP O1 in float16 at the Llama-3-8B width, 4 layers, seq 4096, B1,
+    under GradScaler(2**15, incr every 2, decr every 1): fused AdamW (bf16
+    moment2) over two param groups (norms without decay, the rest 0.01)
+    with the embedding at an lr scale of 0.5 through its optimize_attr
+    (three B5 buckets). 8 steps on one batch; a grad hook multiplies one
+    gradient by inf in step 6. Every step with found_inf leaves every
+    param, moment, beta power and `@step` bit-identical; the scale follows
+    the JAX package's update rule over the logged found_inf sequence; the
+    flash kernels run in float16 with exact launches, fused_adamw once per
+    bucket on the steps that update."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dict(LLAMA3_8B, num_hidden_layers=TRAIN_LAYERS)
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(0)
+    model = LlamaForCausalLM(**cfg, device="cuda")
+    model.llama.embed_tokens.weight.optimize_attr = {"learning_rate": 0.5}  # ParamAttr(learning_rate=0.5)
+    named = list(model.named_parameters())
+    groups = [{"params": [p for n, p in named if "norm" in n], "weight_decay": 0.0},
+              {"params": [p for n, p in named if "norm" not in n]}]
+    opt = ptt.optimizer.AdamW(1e-4, parameters=groups, weight_decay=0.01, moment2_dtype="bfloat16")
+    scaler = ptt.amp.GradScaler(**FP16_SCALER)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg["vocab_size"],
+                                                           (1, TRAIN_SEQ))).cuda()
+    poison = [False]
+    model.llama.layers[0].mlp.down_proj.weight.register_hook(
+        lambda g: g * float("inf") if poison[0] else g)
+
+    def fwd_bwd():
+        with ptt.amp.auto_cast(level="O1", dtype="float16"):
+            loss, _ = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        return loss
+
+    ta.reset_launch_counts()
+    rows, step_s = [], []
+    for i in range(1, FP16_STEPS + 1):
+        poison[0] = i == FP16_INF_STEP
+        before = optimizer_snapshot(model, opt)
+        launches0 = dict(ta.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fwd_bwd()
+        scaler.step(opt)
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        found = scaler._found_inf
+        row = dict(step=i, found_inf=found, loss=loss.item(), scale=scaler._scale,
+                   launches={k: ta.LAUNCHES[k] - launches0[k] for k in TRAIN_PER_STEP})
+        if found:
+            after = optimizer_snapshot(model, opt)
+            row["state_unchanged"] = snapshot_equal(before, after)
+            del after
+        rows.append(row)
+        del before
+    launches = dict(ta.LAUNCHES)
+    variants = {" ".join(k): n for k, n in ta.LAUNCH_VARIANTS.items()}
+    found = [r["found_inf"] for r in rows]
+    n_buckets = len(opt._flat_engine.buckets)
+    want_scales = expected_scales(found, **FP16_SCALER)
+    bad = []
+    for r in rows:
+        want = {"flash_fwd": TRAIN_LAYERS, "flash_bwd_dq": TRAIN_LAYERS,
+                "flash_bwd_dkdv": TRAIN_LAYERS, "fused_adamw": 0 if r["found_inf"] else n_buckets}
+        if r["launches"] != want:
+            bad.append(f"step {r['step']} launches {r['launches']} != {want}")
+        if r["found_inf"] and not r["state_unchanged"]:
+            bad.append(f"step {r['step']}: found_inf, but the optimizer state changed")
+    if n_buckets != 3:
+        bad.append(f"{n_buckets} fused AdamW buckets, expected 3")
+    if not found[FP16_INF_STEP - 1]:
+        bad.append(f"the injected inf of step {FP16_INF_STEP} was not found")
+    if [r["scale"] for r in rows] != want_scales:
+        bad.append(f"scales {[r['scale'] for r in rows]} != the update rule's {want_scales}")
+    updated = [r for r in rows if not r["found_inf"]]
+    if len(updated) < 2 or not all(math.isfinite(r["loss"]) for r in updated):
+        bad.append(f"{len(updated)} steps updated, or a non-finite loss on one")
+    if any(k.split()[1] != "float16" or k.split()[2] != "wgmma" for k in variants
+           if k.startswith("flash")):
+        bad.append(f"a flash kernel did not run the float16 wgmma variant: {variants}")
+    if bad:
+        raise AssertionError("train_fp16_scaler: " + "; ".join(bad) + f"; rows {rows}")
+    timed = [t for t, r in zip(step_s[1:], rows[1:]) if not r["found_inf"]]
+    step_ms = 1e3 * sum(timed) / len(timed)
+    peaks = step_peaks(fwd_bwd, opt, step=lambda: scaler.step(opt))
+
+    def step():
+        fwd_bwd()
+        scaler.step(opt)
+        opt.clear_grad()
+
+    prof = profile_train(step, step_ms)
+    state["fp16_launches"] = launches
+    state["fp16_variants"] = variants
+    log("train_fp16_scaler", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=1, steps=FP16_STEPS,
+        inf_step=FP16_INF_STEP, scaler=FP16_SCALER, buckets=[list(map(str, k)) for k in
+                                                             opt._flat_engine.buckets],
+        found_inf=found, scales=[r["scale"] for r in rows], losses=[r["loss"] for r in rows],
+        skipped_state_unchanged=[r.get("state_unchanged") for r in rows],
+        launches_per_step=[r["launches"] for r in rows], launch_variants=variants,
+        ms_per_step=step_ms, timed_steps=len(timed), tokens_per_sec=TRAIN_SEQ / (step_ms / 1e3),
+        **peaks, train_bf16_same_call=state.get("train_bf16"))
+    log("train_fp16_scaler profile", **prof)
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+O2_LAYERS, O2_STEPS, O2_SAVE_AT = 1, 5, 3
+
+
+def o2_build(ptt):
+    """1 layer at the Llama-3-8B width from seed 0, decorate(O2, bf16):
+    AdamW (bf16 moment2, wd 0.01, FLAGS_fused_optimizer) on a LinearWarmup
+    (2 steps) over a CosineAnnealingDecay, and a GradScaler."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(0)
+    model = LlamaForCausalLM(**dict(LLAMA3_8B, num_hidden_layers=O2_LAYERS), device="cuda")
+    lr = ptt.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=8), warmup_steps=2,
+                            start_lr=1e-5, end_lr=1e-4)
+    opt = ptt.optimizer.AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = ptt.amp.GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2)
+    return dict(model=model, opt=opt, sched=sched, scaler=scaler)
+
+
+def o2_steps(ptt, run, ids, n) -> list:
+    m, opt, scaler = run["model"], run["opt"], run["scaler"]
+    losses = []
+    for _ in range(n):
+        with ptt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = m(ids, labels=ids)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        run["sched"].step()
+        losses.append(loss.item())
+    return losses
+
+
+def o2_result(run, losses) -> dict:
+    return dict(losses=losses, params={n: p.detach().clone() for n, p in
+                                       run["model"].named_parameters()},
+                scaler={k: v.item() for k, v in run["scaler"].state_dict().items()},
+                lr=run["opt"].get_lr())
+
+
+def o2_distance(a, b) -> dict:
+    """Largest |difference| of the losses and of each param (f32)."""
+    return dict(loss=max(abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+                params={n: (a["params"][n].float() - b["params"][n].float()).abs().max().item()
+                        for n in a["params"]})
+
+
+def train_o2_resume(ptt, ta, state):
+    """amp.decorate O2 (bf16 params, B5 with a bf16 P) at the Llama-3-8B
+    width, 1 layer, seq 4096: two uninterrupted 5-step runs, whose distance
+    is the limit (trap: the loss's gather and the embedding backward may
+    sum with atomics; deterministic algorithms are asked for in this phase),
+    then 3 steps, paddle.save of the model, the optimizer (with its
+    scheduler), the scaler and the framework generators to a fresh
+    directory, everything built anew, paddle.load and set_state_dict before
+    the first step, 2 more steps: losses and every param within the two
+    runs' distance, the scaler state and the lr equal."""
+    from paddle_tpu_torch.framework import random as prandom
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 32000, (1, TRAIN_SEQ))).cuda()
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.filterwarnings("ignore", message=".*deterministic.*")
+    tmp = None
+    try:
+        ta.reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            run = o2_build(ptt)
+            if any(p.dtype != torch.bfloat16 for p in run["model"].parameters()):
+                raise AssertionError("train_o2_resume: decorate left a parameter that is not bf16")
+            t0 = time.perf_counter()
+            losses = o2_steps(ptt, run, ids, O2_STEPS)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / O2_STEPS
+            runs.append(o2_result(run, losses))
+            del run
+            gc.collect()
+        launches = dict(ta.LAUNCHES)
+        run = o2_build(ptt)
+        first = o2_steps(ptt, run, ids, O2_SAVE_AT)
+        nbytes_state = sum(t.numel() * t.element_size() for t in run["model"].state_dict().values())
+        nbytes_state += sum(t.numel() * t.element_size() for t in run["opt"].state_dict().values()
+                            if isinstance(t, torch.Tensor))
+        tmp = tempfile.mkdtemp(prefix="ptt_o2_resume_")
+        free = shutil.disk_usage(tmp).free
+        if free < 1.5 * nbytes_state:
+            raise AssertionError(f"train_o2_resume: {free / 1e9:.1f} GB free under {tmp}, the "
+                                 f"checkpoint needs {nbytes_state / 1e9:.1f} GB")
+        path = os.path.join(tmp, "llama_o2.pdckpt")
+        t0 = time.perf_counter()
+        ptt.save({"model": run["model"].state_dict(), "opt": run["opt"].state_dict(),
+                  "scaler": run["scaler"].state_dict(), "rng": prandom.get_rng_state()}, path)
+        save_s, file_gb = time.perf_counter() - t0, os.path.getsize(path) / 1e9
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = o2_build(ptt)
+        t0 = time.perf_counter()
+        ck = ptt.load(path)
+        run["model"].load_state_dict(ck["model"])
+        run["opt"].set_state_dict(ck["opt"])
+        run["scaler"].load_state_dict(ck["scaler"])
+        prandom.set_rng_state(ck["rng"])
+        load_s = time.perf_counter() - t0
+        m2_dtype = str(ck["opt"]["moment2_0"].dtype)
+        del ck
+        resumed = o2_result(run, first + o2_steps(ptt, run, ids, O2_STEPS - O2_SAVE_AT))
+        del run
+    finally:
+        torch.use_deterministic_algorithms(det)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    a, b = runs
+    d_ab, d_ra = o2_distance(a, b), o2_distance(resumed, a)
+    over = [n for n in d_ra["params"] if d_ra["params"][n] > d_ab["params"][n]]
+    bit_equal = d_ra["loss"] == 0 and all(v == 0 for v in d_ra["params"].values())
+    rec = dict(layers=O2_LAYERS, seq=TRAIN_SEQ, steps=O2_STEPS, saved_at=O2_SAVE_AT,
+               params_b=sum(p.numel() for p in a["params"].values()) / 1e9,
+               losses=a["losses"], losses_resumed=resumed["losses"],
+               uninterrupted_distance=dict(loss=d_ab["loss"], param_max=max(d_ab["params"].values())),
+               resumed_distance=dict(loss=d_ra["loss"], param_max=max(d_ra["params"].values())),
+               resumed_bit_equal=bit_equal, scaler=resumed["scaler"], lr=resumed["lr"],
+               checkpoint_gb=file_gb, save_s=save_s, load_s=load_s, moment2_dtype=m2_dtype,
+               ms_per_step=step_ms, launches=launches, deterministic_algorithms=True)
+    if (d_ra["loss"] > d_ab["loss"] or over or resumed["scaler"] != a["scaler"]
+            or resumed["lr"] != a["lr"] or not all(math.isfinite(x) for x in a["losses"])):
+        raise AssertionError(f"train_o2_resume: the resumed run is not within the distance of "
+                             f"two uninterrupted runs (params over it: {over}): {rec}, scaler "
+                             f"{a['scaler']}, lr {a['lr']}")
+    state["o2_launches"] = launches
+    log("train_o2_resume", **rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# card vs CPU limits of amp_parity's O2 case, set before its first card run
+# at 1.5-5x the worst measured by the port against the JAX package on the
+# CPU at the same config (loss 6.5e-5, grads 0.0128, params 0.85 of
+# (4.4 lr + 4 bf16 ulps) at most and 0.0126 lr on average)
+O2_LOSS_RTOL = 3e-4
+O2_GRAD_REL = 5e-2
+O2_PARAM_MAX_OVER_BOUND = 1.5  # of 4.4 lr + 4 ulps of the param's value
+O2_PARAM_MEAN_OVER_LR = 0.05
+
+
+def amp_parity_run(ptt, cfg, ref_state, dev, ids, case):
+    """2 AdamW steps (TRAIN_LR, wd 0.01, fused, bf16 moment2, seed 11 for
+    the rounding) of a tiny Llama from `ref_state` on `dev` in `case`:
+    "o1_fp16" (O1 float16, GradScaler 2**15), "o2_bf16" (decorate O2) or
+    "recompute_micro2" (recompute, 2 micro-batches of one row, O1 bf16).
+    -> losses, the step-1 grads (unscaled) and the params, f32 on the CPU."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    model = LlamaForCausalLM(**cfg, recompute=case == "recompute_micro2", device="meta")
+    model.load_state_dict({k: t.to(dev) for k, t in ref_state.items()}, assign=True)
+    opt = ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    scaler = ptt.amp.GradScaler(init_loss_scaling=2.0 ** 15) if case == "o1_fp16" else None
+    if case == "o2_bf16":
+        model, opt = ptt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    level, dtype = {"o1_fp16": ("O1", "float16"), "o2_bf16": ("O2", "bfloat16"),
+                    "recompute_micro2": ("O1", "bfloat16")}[case]
+    micro = 2 if case == "recompute_micro2" else 1
+    x = ids.to(dev)
+    ptt.seed(11)  # the same stochastic-rounding seeds on both sides
+    losses, grads = [], None
+    for i in range(2):
+        for r in range(micro):
+            xr = x[r:r + 1] if micro > 1 else x
+            with ptt.amp.auto_cast(level=level, dtype=dtype):
+                loss, _ = model(xr, labels=xr)
+            if scaler is not None:
+                scaler.scale(loss).backward()
+            else:
+                (loss * (1.0 / micro)).backward()
+        if scaler is not None:
+            scaler.unscale_(opt)
+        if i == 0:
+            grads = {n: p.grad.detach().float().cpu().clone() for n, p in model.named_parameters()}
+        if scaler is not None:
+            scaler.step(opt)
+        else:
+            opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return dict(losses=losses, grads=grads,
+                params={n: p.detach().float().cpu() for n, p in model.named_parameters()})
+
+
+def amp_parity(ptt, ta):
+    """A tiny Llama (head_dim 64: the tensor-core flash variants) from one
+    set of weights on the card and on the CPU, 2 steps each in three cases:
+    O1 float16 with a GradScaler and recompute with micro=2 in O1 bf16
+    (train_parity's limits), O2 bf16 through decorate (O2_* limits)."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = TINY_LLAMA_D64
+    ptt.seed(3)
+    ref = LlamaForCausalLM(**cfg, device="cpu")
+    ref_state = ref.state_dict()
+    ids = torch.from_numpy(np.random.RandomState(4).randint(0, cfg["vocab_size"], (2, 64)))
+    layers = cfg["num_hidden_layers"]
+    for case in ("o1_fp16", "o2_bf16", "recompute_micro2"):
+        ta.reset_launch_counts()
+        card = amp_parity_run(ptt, cfg, ref_state, "cuda", ids, case)
+        launches = {k: ta.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+        variants = {" ".join(k): n for k, n in ta.LAUNCH_VARIANTS.items()}
+        cpu = amp_parity_run(ptt, cfg, ref_state, "cpu", ids, case)
+        fwd = 2 * layers * (4 if case == "recompute_micro2" else 1)
+        bwd = 2 * layers * (2 if case == "recompute_micro2" else 1)
+        want = {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkdv": bwd}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        grad_rel = max(((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                       for n, g in cpu["grads"].items())
+        dp = torch.cat([(card["params"][n] - w).abs().reshape(-1) for n, w in cpu["params"].items()])
+        rec = dict(case=case, losses_card=card["losses"], losses_cpu=cpu["losses"],
+                   loss_max_rel_err=loss_rel, grad_max_rel_l2_err=grad_rel,
+                   param_max_abs_diff_over_lr=dp.max().item() / TRAIN_LR,
+                   param_mean_abs_diff_over_lr=dp.mean().item() / TRAIN_LR,
+                   launches=launches, launch_variants=variants)
+        if case == "o2_bf16":
+            ulp = torch.cat([w.abs().reshape(-1) for w in cpu["params"].values()]) * 2.0 ** -8
+            over = (dp / (4.4 * TRAIN_LR + 4 * ulp)).max().item()
+            rec.update(param_max_over_bound=over, tol=dict(
+                loss_rel=O2_LOSS_RTOL, grad_rel_l2=O2_GRAD_REL,
+                param_max_over_bound=O2_PARAM_MAX_OVER_BOUND,
+                param_mean_over_lr=O2_PARAM_MEAN_OVER_LR))
+            ok = (loss_rel <= O2_LOSS_RTOL and grad_rel <= O2_GRAD_REL
+                  and over <= O2_PARAM_MAX_OVER_BOUND
+                  and rec["param_mean_abs_diff_over_lr"] <= O2_PARAM_MEAN_OVER_LR)
+        else:
+            rec["tol"] = dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL,
+                              param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                              param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR)
+            ok = (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL
+                  and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+                  and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR)
+        if launches != want:
+            raise AssertionError(f"amp_parity {case}: flash launches {launches} != {want}")
+        if not ok:
+            raise AssertionError(f"amp_parity {case}: card and CPU runs disagree: {rec}")
+        log("amp_parity", **rec)
 
 
 # ---------------------------------------------------------------------------
@@ -1624,8 +2244,10 @@ def resnet50_train(ptt, ta, state, warmup=2, steps=10, eager_steps=4):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
-                                        "train_parity,train_bf16,rms_norm_entry,ernie_parity,"
-                                        "ernie_seq128,ernie_seq4096,resnet_parity,resnet50_train",
+                                        "train_parity,train_bf16,train_recompute,"
+                                        "train_fp16_scaler,train_o2_resume,amp_parity,"
+                                        "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
+                                        "resnet_parity,resnet50_train",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -1731,6 +2353,8 @@ def main(argv=None) -> int:
                         False)
         check_flash_bwd(ta, gen, "f32 causal S128 H4/2 D64, loss on out and lse", 1, 128, 128, 4, 2,
                         64, torch.float32, True, use_lse=True)
+        records.update({k + "[float16]": r for k, r in fp16_flash_checks(ta, gen).items()})
+        torch.cuda.empty_cache()
         from paddle_tpu_torch.incubate.nn import functional as IF
         from paddle_tpu_torch.ops import fused_optimizer as fo
 
@@ -1746,9 +2370,14 @@ def main(argv=None) -> int:
                                        f"bucket at max positions {max_pos}",
                                        ernie_bucket_elems(ERNIE_BASE, max_pos), timed=True)
                     for max_pos in (512, 4096)]
+        torch.cuda.empty_cache()
+        # train_o2_resume's bucket: 1 layer at the Llama-3-8B width, bf16 P (amp.decorate O2)
+        o2_b5 = check_adamw_bucket(fo, gen, "bf16 P (O2), bf16 m2, AdamW wd 0.01, the 1-layer O2 "
+                                   "bucket", train_bucket_elems(dict(LLAMA3_8B, num_hidden_layers=1)),
+                                   timed=True, p_dtype=torch.bfloat16)
         records["fused_adamw"]["by_shape"] = [
             {k: r[k] for k in ("case", "n", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-            for r in (records["fused_adamw"], *ernie_b5)]
+            for r in (records["fused_adamw"], *ernie_b5, o2_b5)]
         torch.cuda.empty_cache()
         n_large = train_bucket_elems(dict(LLAMA3_8B, num_hidden_layers=LARGE_BUCKET_LAYERS))
         check_adamw_bucket(fo, gen, f"bf16 m2, AdamW wd 0.01, a {LARGE_BUCKET_LAYERS}-layer bucket "
@@ -1782,6 +2411,14 @@ def main(argv=None) -> int:
             train_parity(ptt, ta, cfg)
     if "train_bf16" in phases:
         train_bf16(ptt, ta, state)
+    if "train_recompute" in phases:  # bench.py:461-467's recompute and micro-batch rungs
+        train_recompute(ptt, ta, state)
+    if "train_fp16_scaler" in phases:
+        train_fp16_scaler(ptt, ta, state)
+    if "train_o2_resume" in phases:
+        train_o2_resume(ptt, ta, state)
+    if "amp_parity" in phases:
+        amp_parity(ptt, ta)
     if "rms_norm_entry" in phases:
         from paddle_tpu_torch.incubate.nn import functional as IF
 
@@ -1807,12 +2444,28 @@ def main(argv=None) -> int:
         "rms_norm": (k + "rms_norm.cu", "paddle_tpu/incubate/nn/functional/__init__.py:67"),
     }
     by_path = {"serve_bf16": state.get("launches", {}), "train_bf16": state.get("train_launches", {}),
+               "train_recompute": state.get("recompute_launches", {}),
+               # its flash launches are the float16 rows' (below)
+               "train_fp16_scaler": {k: v for k, v in state.get("fp16_launches", {}).items()
+                                     if k == "fused_adamw"},
+               "train_o2_resume": state.get("o2_launches", {}),
                "fused_rms_norm": state.get("rms_norm_launches", {}),
                **state.get("ernie_launches", {}), "resnet50_train": state.get("resnet_launches", {})}
+    # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
+    fp16_counts = {}
+    for key, n in state.get("fp16_variants", {}).items():
+        kname, dtype, _ = key.split()
+        if dtype == "float16":
+            fp16_counts[kname + "[float16]"] = fp16_counts.get(kname + "[float16]", 0) + n
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
+        sources[kname + "[float16]"] = sources[kname]
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = records.get(name, {})
-        counts = {path: c[name] for path, c in by_path.items() if name in c}
+        if name.endswith("[float16]"):
+            counts = ({"train_fp16_scaler": fp16_counts[name]} if name in fp16_counts else {})
+        else:
+            counts = {path: c[name] for path, c in by_path.items() if name in c}
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(counts.values()) if counts else None, launches_by_path=counts,

@@ -1,5 +1,7 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving, Llama
-training, ERNIE MLM pretraining and ResNet ImageNet training slices).
+training, ERNIE MLM pretraining and ResNet ImageNet training slices, with
+float16 AMP under a GradScaler, O2, recompute, param groups and
+checkpoints in the JAX package's format).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -39,17 +41,26 @@ CUDA use.
 
 The convs, batch norms, pools and the Momentum update are plain torch ops
 (cuDNN convs on the card), as the JAX package leaves them to XLA.
+
+    # float16 with loss scaling; checkpoint and resume
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    with paddle.amp.auto_cast(level="O1", dtype="float16"):
+        loss, _ = model(ids, labels=labels)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    paddle.save({"model": model.state_dict(), "opt": opt.state_dict()}, path)
 """
-from . import (amp, framework, incubate, inference, jit, models, nn, ops, optimizer, quantization,
-               regularizer, utils, vision)
+from . import (amp, distributed, framework, incubate, inference, jit, models, nn, ops, optimizer,
+               quantization, regularizer, utils, vision)
 from .framework.device import get_device, set_device
 from .framework.dtype import get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
+from .framework.io import load, save
 from .framework.random import seed
 from .ops.creation import to_tensor
 from .ops.manipulation import flatten
 
-__all__ = ["amp", "framework", "incubate", "inference", "jit", "models", "nn", "ops", "optimizer",
+__all__ = ["amp", "distributed", "framework", "incubate", "inference", "jit", "models", "nn", "ops", "optimizer",
            "quantization", "regularizer", "utils", "vision", "get_device", "set_device",
            "get_default_dtype", "set_default_dtype", "get_flags", "set_flags", "seed", "to_tensor",
-           "flatten"]
+           "flatten", "save", "load"]

@@ -16,7 +16,24 @@ cross_entropy, scaled_dot_product_attention, fused_linear_cross_entropy
 and fused_rms_norm. Elementwise ops (add, relu, silu, RoPE), the pools,
 batch norm's statistics and the embedding lookup follow their inputs
 under every level: O2 does not cast them here as it does in the JAX
-package.
+package. After `decorate(level="O2")` every parameter is low already, so
+they run low all the same.
+
+`decorate(models, optimizers, level="O2", dtype)` casts the models'
+floating parameters and buffers to `dtype` and nothing more: as in the
+JAX package there is no f32 master copy; the optimizers update a low
+parameter in f32 and round back every step.
+
+`GradScaler` is dynamic loss scaling (paddle_tpu/amp/__init__.py:130-281)
+for float16 training: `scale(loss)`, `unscale_(opt)` (once per optimizer a
+step), `step(opt)`, `update()`, `minimize`, `record_external_skip`,
+`state_dict`/`load_state_dict`. The JAX package never reads `found_inf`
+on the host: it runs the step and blends every tensor back. Here
+`unscale_` reads it once a step (one host sync) and a step with a
+non-finite gradient is skipped outright (`Optimizer._skip_step`): no
+parameter, moment, beta power or `@step` changes, and the
+stochastic-rounding seeds the JAX package's step draws are drawn, so the
+runs stay bit-comparable. The scale, good and bad counts are host values.
 """
 from __future__ import annotations
 
@@ -24,6 +41,7 @@ import functools
 import threading
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..framework import dtype as _dtype
@@ -116,4 +134,148 @@ def amp_cast_inputs(name: str, values: List) -> List:
             else v for v in values]
 
 
-__all__ = ["auto_cast", "amp_cast_inputs", "get_amp_state", "WHITE_LIST", "BLACK_LIST"]
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16", master_weight=None,
+             save_dtype=None):
+    """paddle.amp.decorate: under O2 the models' floating parameters and
+    buffers become `dtype` (in place: the parameter objects, and with them
+    the optimizers' references, stay). No master weights: `master_weight`
+    and `save_dtype` are accepted and change nothing, as in the JAX
+    package (paddle_tpu/amp/__init__.py:117-128)."""
+    ms = [models] if not isinstance(models, (list, tuple)) else list(models)
+    if level.upper() == "O2":
+        dt = _dtype.convert_dtype(dtype)
+        for m in ms:
+            m.to(dtype=dt)
+    if optimizers is None:
+        return models
+    return models, optimizers
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+class GradScaler:
+    """Dynamic loss scaling (python/paddle/amp/grad_scaler.py), the JAX
+    package's rules: a non-finite gradient skips the step; after
+    `decr_every_n_nan_or_inf` bad steps in a row the scale is multiplied by
+    `decr_ratio` (not below 1), after `incr_every_n_steps` good steps in a
+    row by `incr_ratio`. The scale is an f32 value."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15, incr_ratio=2.0, decr_ratio=0.5,
+                 incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
+                 use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = _f32(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every = incr_every_n_steps
+        self._decr_every = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False
+        self._unscaled: set = set()  # ids of the optimizers unscaled this step
+
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self) -> bool:
+        return self._dynamic
+
+    def get_loss_scaling(self) -> torch.Tensor:
+        return torch.tensor(self._scale, dtype=torch.float32)
+
+    def scale(self, loss):
+        """loss times the scale, in the loss's dtype."""
+        if not self._enable:
+            return loss
+        return loss * _dtype.round_to(self._scale, loss.dtype)
+
+    @torch.no_grad()
+    def unscale_(self, optimizer) -> None:
+        """Divide the optimizer's grads by the scale (in f32, stored back in
+        each grad's dtype) and note whether any is non-finite: the one host
+        read of a step. A second call before `step` does nothing."""
+        if not self._enable or id(optimizer) in self._unscaled:
+            return
+        self._unscaled.add(id(optimizer))
+        params = [p for _, p in optimizer._all_params() if p.grad is not None]
+        if not params:
+            return
+        inv = _f32(np.float32(1.0) / np.float32(self._scale))
+        found = None
+        for p in params:
+            g = p.grad.float() * inv
+            bad = ~torch.isfinite(g).all()
+            found = bad if found is None else found | bad
+            p.grad.copy_(g)
+        self._found_inf = bool(found)
+
+    def step(self, optimizer) -> None:
+        """unscale_ (if not done), then the optimizer's step, or its skip
+        when a gradient is non-finite, then `update`."""
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        if self._found_inf:
+            optimizer._skip_step()
+        else:
+            optimizer.step()
+        self._unscaled.discard(id(optimizer))
+        self.update()
+
+    def minimize(self, optimizer, scaled_loss) -> None:
+        scaled_loss.backward()
+        self.step(optimizer)
+
+    def record_external_skip(self) -> None:
+        """Count a step skipped outside the scaler as a bad step."""
+        if not self._enable:
+            return
+        prev = self._found_inf
+        self._found_inf = True
+        self.update()
+        self._found_inf = prev
+
+    def update(self) -> None:
+        if not (self._enable and self._dynamic):
+            return
+        found = self._found_inf
+        good = 0 if found else self._good_steps + 1
+        bad = self._bad_steps + 1 if found else 0
+        scale = self._scale
+        if bad >= self._decr_every:
+            scale, bad = max(_f32(scale * self._decr_ratio), 1.0), 0
+        if good >= self._incr_every:
+            scale, good = _f32(scale * self._incr_ratio), 0
+        self._scale, self._good_steps, self._bad_steps = scale, good, bad
+
+    def state_dict(self) -> dict:
+        """{"scale": f32, "good_steps": int32, "bad_steps": int32} 0-d
+        tensors, the JAX package's keys and types."""
+        return {"scale": torch.tensor(self._scale, dtype=torch.float32),
+                "good_steps": torch.tensor(self._good_steps, dtype=torch.int32),
+                "bad_steps": torch.tensor(self._bad_steps, dtype=torch.int32)}
+
+    def load_state_dict(self, sd) -> None:
+        if "scale" in sd:
+            self._scale = _f32(float(sd["scale"]))
+        if "good_steps" in sd:
+            self._good_steps = int(sd["good_steps"])
+        if "bad_steps" in sd:
+            self._bad_steps = int(sd["bad_steps"])
+
+
+def is_bfloat16_supported(device=None) -> bool:
+    return True
+
+
+def is_float16_supported(device=None) -> bool:
+    """The flash kernels (B1-B3) take float16 q/k/v on the card."""
+    return True
+
+
+__all__ = ["auto_cast", "amp_cast_inputs", "get_amp_state", "decorate", "GradScaler",
+           "is_bfloat16_supported", "is_float16_supported", "WHITE_LIST", "BLACK_LIST"]

@@ -37,6 +37,27 @@ def generator(device: Union[str, torch.device]) -> torch.Generator:
     return gen
 
 
+def get_rng_state() -> dict:
+    """The state of every device generator drawn from so far: a recompute
+    replay draws the same numbers again from it, and a checkpoint that
+    saves it resumes the same draws."""
+    return {key: gen.get_state() for key, gen in _generators.items()}
+
+
+def set_rng_state(state: dict) -> None:
+    """Put the generators back to `state` (get_rng_state's): those in it
+    take its state, those created since are dropped (the next draw makes
+    them anew from the seed, as before they existed)."""
+    for key in list(_generators):
+        if key not in state:
+            del _generators[key]
+    for key, st in state.items():
+        gen = _generators.get(key)
+        if gen is None:
+            gen = _generators[key] = torch.Generator(device=torch.device(key))
+        gen.set_state(st)
+
+
 def fresh_int32_seed(device: Union[str, torch.device] = "cpu") -> int:
     """One int32 drawn from the device's generator (the dropout seed a
     call gets when it names none)."""

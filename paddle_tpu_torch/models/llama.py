@@ -172,14 +172,22 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             layer.self_attn.layer_idx = i
         self.norm = RMSNorm(hidden_size, rms_norm_eps, **kw)
-        # activation recompute trades compute for training memory; kept in
-        # the config for artifact compatibility, it changes nothing here
+        # activation recompute on the decoder layers: in training each layer
+        # keeps only its input and runs again in the backward (~1/3 more
+        # compute for O(layers) less activation memory)
         self.recompute = recompute
 
     def forward(self, input_ids, cache=None, positions=None):
+        from ..distributed.fleet.recompute import recompute as _ckpt
+
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, cache=cache, positions=positions)
+            if cache is not None:
+                x = layer(x, cache=cache, positions=positions)
+            elif self.recompute and self.training:
+                x = _ckpt(layer, x)
+            else:
+                x = layer(x)
         return self.norm(x)
 
 

@@ -18,7 +18,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     """[B, S, H, D] attention; key/value may carry fewer heads (GQA).
     Dropout applies only when `training`, from the position hash keyed by
     `dropout_seed` (None draws one from the framework generator). Under
-    AMP the inputs cast as the white-listed op (bf16 under O1)."""
+    AMP the inputs cast as the white-listed op (to the AMP dtype, bf16 or
+    float16, under O1); the flash kernels take either."""
     query, key, value, attn_mask = amp_cast_inputs(
         "scaled_dot_product_attention", [query, key, value, attn_mask])
     p_drop = float(dropout_p) if training else 0.0

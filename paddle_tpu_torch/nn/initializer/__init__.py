@@ -64,29 +64,35 @@ class XavierUniform(Initializer):
 
 
 class ParamAttr:
-    """paddle.ParamAttr: a parameter's name and initializer. A learning
-    rate scale, a regularizer or need_clip=False is not ported (param
-    groups and per-parameter lr scales are later work) and raises."""
+    """paddle.ParamAttr: a parameter's name, initializer, learning-rate
+    scale, regularizer, trainable and need_clip
+    (paddle_tpu/nn/initializer/__init__.py:174). `create_parameter` puts
+    the last four on the parameter, where the optimizer reads them:
+    `optimize_attr["learning_rate"]` scales its lr, `regularizer` replaces
+    the optimizer's weight decay for it, and `need_clip=False` keeps it
+    out of the gradient clip."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0, regularizer=None,
                  trainable=True, need_clip=True, do_model_average=False):
-        if learning_rate != 1.0 or regularizer is not None or not need_clip:
-            raise NotImplementedError(
-                "ParamAttr: learning_rate, regularizer and need_clip=False are not ported")
         self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
+        self.need_clip = need_clip
 
 
 def _resolve_attr(attr, is_bias, default_initializer):
-    """-> (initializer, trainable); initializer None for attr=False (no
-    parameter). The attr's initializer wins, then the default, then zeros
-    for a bias and XavierUniform for a weight."""
+    """-> (initializer, trainable, lr scale, regularizer, need_clip);
+    initializer None for attr=False (no parameter). The attr's initializer
+    wins, then the default, then zeros for a bias and XavierUniform for a
+    weight."""
     if attr is False:
-        return None, False
-    init, trainable = None, True
+        return None, False, 1.0, None, True
+    init, trainable, lr, reg, need_clip = None, True, 1.0, None, True
     if isinstance(attr, ParamAttr):
         init, trainable = attr.initializer, attr.trainable
+        lr, reg, need_clip = attr.learning_rate, attr.regularizer, attr.need_clip
     elif isinstance(attr, Initializer):
         init = attr
     elif attr is not None and not isinstance(attr, str):
@@ -95,7 +101,7 @@ def _resolve_attr(attr, is_bias, default_initializer):
         init = default_initializer
     if init is None:
         init = Constant(0.0) if is_bias else XavierUniform()
-    return init, trainable
+    return init, trainable, lr, reg, need_clip
 
 
 __all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierUniform", "ParamAttr"]

@@ -23,16 +23,21 @@ from typing import Optional, Tuple
 import torch
 
 from ..framework import random as _random
-from .launches import LAUNCHES, reset_launch_counts  # noqa: F401  (re-exported)
+from .launches import (LAUNCH_VARIANTS, LAUNCHES, count_launch,  # noqa: F401  (re-exported)
+                       reset_launch_counts)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
+# the storage types of the flash kernels (B1-B3)
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # ---------------------------------------------------------------------------
 # which kernel runs: the one place the choice is made
 # ---------------------------------------------------------------------------
 
-# kernels with a bf16 tensor-core (wgmma) variant, and the head dims it takes
+# kernels with a tensor-core (wgmma) variant, the storage types and the
+# head dims it takes
 TC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = (64, 128)
 _VARIANT_CODE = {"cuda_core": 0, "wgmma": 1}
 
@@ -40,11 +45,11 @@ _VARIANT_CODE = {"cuda_core": 0, "wgmma": 1}
 def kernel_variant(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel variant that `kernel` ("flash_fwd", "flash_bwd_dq"
     or "flash_bwd_dkdv") runs for q/k/v of `dtype` and `head_dim`: "wgmma"
-    (the bf16 tensor-core kernel) for bf16 at a head dim of TC_HEAD_DIMS,
+    (the tensor-core kernel) for bf16 or f16 at a head dim of TC_HEAD_DIMS,
     "cuda_core" otherwise. f32 stays on the CUDA cores: the tensor cores
     would take it as TF32. Decided on dtype and head dim alone; the C entry
     point launches what it is given and refuses a variant it cannot run."""
-    if kernel in TC_KERNELS and dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    if kernel in TC_KERNELS and dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
 
@@ -179,8 +184,9 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash kernel: {name} must be on {q.device}, got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
-            raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got {name} {t.dtype}")
+        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash kernel takes float32, bfloat16 or float16 q/k/v of one dtype, "
+                            f"got {name} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash kernel: {name} must be contiguous")
     b, sq, h, d = q.shape
@@ -200,7 +206,7 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
             float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, _VARIANT_CODE[variant],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    count_launch("flash_fwd", q.dtype, variant)
     return out, lse
 
 
@@ -248,9 +254,9 @@ def _check_bwd_operands(q, k, v, do, lse, delta) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", do)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash backward kernel: {name} must be on {q.device}, got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
-            raise TypeError(f"flash backward kernel takes float32 or bfloat16 tensors of one "
-                            f"dtype, got {name} {t.dtype}")
+        if t.dtype not in FLASH_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"flash backward kernel takes float32, bfloat16 or float16 tensors "
+                            f"of one dtype, got {name} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"flash backward kernel: {name} must be contiguous")
     for name, t in (("lse", lse), ("delta", delta)):
@@ -277,7 +283,7 @@ def _bwd_launch(fn_name, outs, q, k, v, do, lse, delta, causal, scale, dropout_p
         float(1.0 / (1.0 - dropout_p)) if use_drop else 1.0, _VARIANT_CODE[variant],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, fn_name)
-    LAUNCHES[fn_name] += 1
+    count_launch(fn_name, q.dtype, variant)
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed) -> torch.Tensor:

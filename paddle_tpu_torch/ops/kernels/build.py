@@ -28,7 +28,7 @@ BUILD_DIR = _HERE / "_build"
 # library name -> source file in this directory
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_attn": "paged_attn.cu", "flash_bwd": "flash_bwd.cu",
            "fused_adamw": "fused_adamw.cu", "rms_norm": "rms_norm.cu"}
-_HEADERS = ("common.cuh", "sm90.cuh")
+_HEADERS = ("common.cuh", "sm90.cuh", "sm90_wgmma.cuh")
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -3,16 +3,18 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptt {
 
 // dtype codes of the C interface (the Python wrappers pass these)
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -20,9 +22,10 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 // x rounded to the storage type T and widened back (round half to even,
-// as torch's .to(bfloat16) and jnp's astype do)
+// as torch's .to(bfloat16/float16) and jnp's astype do)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }

@@ -26,13 +26,15 @@
 //               to q's type before dk += ds^T.Q (:577, :582).
 //
 // Both CUDA-core kernels take any Sq/Sk (out-of-range rows and keys
-// contribute 0, as the forward kernel's), head_dim <= 256, f32 and bf16.
-// Tiles are widened to f32 in shared memory, so products of bf16 inputs
+// contribute 0, as the forward kernel's), head_dim <= 256, f32, bf16 and
+// f16. Tiles are widened to f32 in shared memory, so products of 16-bit inputs
 // are exact and every sum is f32, as the MXU's bf16-in/f32-accumulate
 // matmul.
 //
-// Both have a second, bf16 tensor-core variant at head_dim 64 or 128
-// (namespace tc below; the design notes are there). dk/dv: K and V
+// Both have a second, tensor-core variant for bf16 and f16 at head_dim 64
+// or 128 (namespace tc below; the design notes are there; the element
+// type is a template parameter, and f16 takes the f16 form of every wgmma
+// and tensor map). dk/dv: K and V
 // resident in shared memory, Q/dO tiles streamed by TMA through a ring,
 // all four products on wgmma with f32 accumulators in registers, P^T and
 // dS^T built on the fragments and fed back as register A operands. dq:
@@ -405,7 +407,7 @@ int dispatch_d(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv, bf16 tensor-core variant (head_dim 64 or 128)
+// dk/dv, bf16/f16 tensor-core variant (head_dim 64 or 128)
 // ---------------------------------------------------------------------------
 //
 // One CTA of 384 threads per (b*hkv, 128-key tile); key tile 0, which
@@ -424,7 +426,7 @@ int dispatch_d(const Args& a) {
 // both operands K-major in shared memory) and builds P^T = exp(S^T - lse)
 // on the accumulator fragments (the dropout hash keyed by that q head,
 // b*H + hkv*group + g, at each element's own (q row, key)). P^T z, rounded
-// to bf16 in registers, is at once the A operand of dV += (P^T z).dO
+// to the storage type in registers, is at once the A operand of dV += (P^T z).dO
 // (register-A wgmma m64nDk16, dO read MN-major); while that runs,
 // dS^T = P^T (dP^T z - delta) scale is built and rounded the same way
 // and feeds dK += dS^T.Q, which reads the same Q tile MN-major. dK and dV
@@ -466,12 +468,12 @@ struct Layout {
 // DROP: dropout is a template parameter here, not a runtime flag: with
 // the hash in the loop ptxas keeps the consumers under 168 registers and
 // spills (0.89 ms without it against 1.12 ms with it, S4096 on the H100)
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int causal, float scale,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int causal, float scale,
     uint32_t seed, uint32_t thresh, float inv_keep) {
   using L = Layout<D>;
   namespace s9 = ptt::sm90;
@@ -581,13 +583,13 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
-        s9::wgmma_ss<BQ>(st, s9::desc_k(k_addr + at * L::KV_HALF + sub),
+        s9::wgmma_ss<BQ, T>(st, s9::desc_k(k_addr + at * L::KV_HALF + sub),
                          s9::desc_k(q_addr + at * L::Q_HALF + sub), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
-        s9::wgmma_ss<BQ>(dpt, s9::desc_k(v_addr + at * L::KV_HALF + sub),
+        s9::wgmma_ss<BQ, T>(dpt, s9::desc_k(v_addr + at * L::KV_HALF + sub),
                          s9::desc_k(do_addr + at * L::Q_HALF + sub), kk > 0);
       }
       s9::wgmma_commit();
@@ -621,20 +623,20 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
           dpt[j + e] = dp;
           pz2[e] = pz;
         }
-        pa[j / 8][(j % 8) / 2] = s9::pack_bf16(pz2[0], pz2[1]);
+        pa[j / 8][(j % 8) / 2] = s9::pack2<T>(pz2[0], pz2[1]);
       }
       s9::fence_regs(adv);
       s9::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         const uint64_t bd = s9::desc_mn(do_addr + kk * 2048u, L::Q_HALF);
-        s9::wgmma_rs<D>(adv, pa[kk], bd, 1);
+        s9::wgmma_rs<D, T>(adv, pa[kk], bd, 1);
       }
       s9::wgmma_commit();
 #pragma unroll
       for (int j = 0; j < BQ / 2; j += 2) {
         const int col = 8 * (j / 4) + cq;
-        sa[j / 8][(j % 8) / 2] = s9::pack_bf16(st[j] * (dpt[j] - ds_[col]) * scale,
+        sa[j / 8][(j % 8) / 2] = s9::pack2<T>(st[j] * (dpt[j] - ds_[col]) * scale,
                                                st[j + 1] * (dpt[j + 1] - ds_[col + 1]) * scale);
       }
       s9::fence_regs(adk);
@@ -642,7 +644,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         const uint64_t bq = s9::desc_mn(q_addr + kk * 2048u, L::Q_HALF);
-        s9::wgmma_rs<D>(adk, sa[kk], bq, 1);
+        s9::wgmma_rs<D, T>(adk, sa[kk], bq, 1);
       }
       s9::wgmma_commit();
       s9::wgmma_wait<0>();
@@ -661,37 +663,36 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_tc_kernel(
       for (int c = 0; c < D / 8; ++c) {
         const long o = base + (long)kpos * kv_step + 8 * c;
         const int i = 4 * c + 2 * r;
-        *reinterpret_cast<uint32_t*>(dk + o) = s9::pack_bf16(adk[i], adk[i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + o) = s9::pack_bf16(adv[i], adv[i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + o) = s9::pack2<T>(adk[i], adk[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) = s9::pack2<T>(adv[i], adv[i + 1]);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkdv(const Args& a) {
   namespace s9 = ptt::sm90;
   CUtensorMap mq, mk, mv, mdo;
-  int rc = s9::encode_bshd(&mq, a.q, a.B, a.Sq, a.H, D, BQ);
-  if (rc == 0) rc = s9::encode_bshd(&mdo, a.dout, a.B, a.Sq, a.H, D, BQ);
-  if (rc == 0) rc = s9::encode_bshd(&mk, a.k, a.B, a.Sk, a.Hkv, D, BKV);
-  if (rc == 0) rc = s9::encode_bshd(&mv, a.v, a.B, a.Sk, a.Hkv, D, BKV);
+  int rc = s9::encode_bshd<T>(&mq, a.q, a.B, a.Sq, a.H, D, BQ);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mdo, a.dout, a.B, a.Sq, a.H, D, BQ);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mk, a.k, a.B, a.Sk, a.Hkv, D, BKV);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mv, a.v, a.B, a.Sk, a.Hkv, D, BKV);
   if (rc != 0) return rc;
-  auto kern = a.use_drop ? flash_bwd_dkdv_tc_kernel<D, true>
-                         : flash_bwd_dkdv_tc_kernel<D, false>;
+  auto kern = a.use_drop ? flash_bwd_dkdv_tc_kernel<T, D, true>
+                         : flash_bwd_dkdv_tc_kernel<T, D, false>;
   const int smem = Layout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.B * a.Hkv, (a.Sk + BKV - 1) / BKV);
   kern<<<grid, NT, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta,
-                                     static_cast<__nv_bfloat16*>(a.o0),
-                                     static_cast<__nv_bfloat16*>(a.o1), a.Sq, a.Sk, a.H, a.Hkv,
+                                     static_cast<T*>(a.o0), static_cast<T*>(a.o1), a.Sq, a.Sk, a.H, a.Hkv,
                                      a.causal, a.scale, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// dq, bf16 tensor-core variant (head_dim 64 or 128)
+// dq, bf16/f16 tensor-core variant (head_dim 64 or 128)
 // ---------------------------------------------------------------------------
 //
 // One CTA of 384 threads per (b*h, 128-row q tile), the heaviest causal
@@ -706,7 +707,7 @@ int launch_dkdv(const Args& a) {
 // operands K-major in shared memory), builds p = exp2(S scale log2 e -
 // lse log2 e) on the accumulator fragments, dP z under dropout (the hash
 // keyed by the q head b*H + h, the forward's key, at each element's own
-// (q row, key)), and dS = p (dP z - delta) scale rounded to bf16 in
+// (q row, key)), and dS = p (dP z - delta) scale rounded to the storage type in
 // registers, where it is already the A fragment of dQ += dS.K (register-A
 // wgmma m64nDk16), which reads the same K tile MN-major. dQ stays in f32
 // registers across every key tile and is written once: the CTA owns its
@@ -741,11 +742,11 @@ struct DqLayout {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * DQ_STAGES) + 1024;  // + alignment slack
 };
 
-template <int D, bool DROP>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
     int Sq, int Sk, int H, int Hkv, int causal, float scale, uint32_t seed, uint32_t thresh,
     float inv_keep) {
   using L = DqLayout<D>;
@@ -842,13 +843,13 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
-        s9::wgmma_ss<DQ_KEYS>(sc, s9::desc_k(q_addr + at * L::Q_HALF + sub),
+        s9::wgmma_ss<DQ_KEYS, T>(sc, s9::desc_k(q_addr + at * L::Q_HALF + sub),
                               s9::desc_k(k_addr + at * L::KV_HALF + sub), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t at = kk / 4, sub = (kk % 4) * 32u;
-        s9::wgmma_ss<DQ_KEYS>(dp, s9::desc_k(do_addr + at * L::Q_HALF + sub),
+        s9::wgmma_ss<DQ_KEYS, T>(dp, s9::desc_k(do_addr + at * L::Q_HALF + sub),
                               s9::desc_k(v_addr + at * L::KV_HALF + sub), kk > 0);
       }
       s9::wgmma_commit();
@@ -876,14 +877,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
           }
           ds2[e] = p * (d - dl[r]) * scale;
         }
-        sa[j / 8][(j % 8) / 2] = s9::pack_bf16(ds2[0], ds2[1]);  // ds in k's type (:520)
+        sa[j / 8][(j % 8) / 2] = s9::pack2<T>(ds2[0], ds2[1]);  // ds in k's type (:520)
       }
       s9::fence_regs(acc);
       s9::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
         const uint64_t bk = s9::desc_mn(k_addr + kk * 2048u, L::KV_HALF);
-        s9::wgmma_rs<D>(acc, sa[kk], bk, 1);
+        s9::wgmma_rs<D, T>(acc, sa[kk], bk, 1);
       }
       s9::wgmma_commit();
       s9::wgmma_wait<0>();
@@ -892,7 +893,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
     }
 
     const long q_step = (long)H * D;
-    __nv_bfloat16* db = dq + (long)b * Sq * q_step + (long)h * D + cq;
+    T* db = dq + (long)b * Sq * q_step + (long)h * D + cq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + 8 * r;
@@ -901,49 +902,57 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_tc_kernel(
       for (int c = 0; c < D / 8; ++c) {
         const int i = 4 * c + 2 * r;
         *reinterpret_cast<uint32_t*>(db + (long)qpos * q_step + 8 * c) =
-            s9::pack_bf16(acc[i], acc[i + 1]);
+            s9::pack2<T>(acc[i], acc[i + 1]);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq(const Args& a) {
   namespace s9 = ptt::sm90;
   CUtensorMap mq, mk, mv, mdo;
-  int rc = s9::encode_bshd(&mq, a.q, a.B, a.Sq, a.H, D, DQ_ROWS);
-  if (rc == 0) rc = s9::encode_bshd(&mdo, a.dout, a.B, a.Sq, a.H, D, DQ_ROWS);
-  if (rc == 0) rc = s9::encode_bshd(&mk, a.k, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
-  if (rc == 0) rc = s9::encode_bshd(&mv, a.v, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
+  int rc = s9::encode_bshd<T>(&mq, a.q, a.B, a.Sq, a.H, D, DQ_ROWS);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mdo, a.dout, a.B, a.Sq, a.H, D, DQ_ROWS);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mk, a.k, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
+  if (rc == 0) rc = s9::encode_bshd<T>(&mv, a.v, a.B, a.Sk, a.Hkv, D, DQ_KEYS);
   if (rc != 0) return rc;
-  auto kern = a.use_drop ? flash_bwd_dq_tc_kernel<D, true> : flash_bwd_dq_tc_kernel<D, false>;
+  auto kern = a.use_drop ? flash_bwd_dq_tc_kernel<T, D, true> : flash_bwd_dq_tc_kernel<T, D, false>;
   const int smem = DqLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.B * a.H, (a.Sq + DQ_ROWS - 1) / DQ_ROWS);
   kern<<<grid, NT, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta,
-                                     static_cast<__nv_bfloat16*>(a.o0), a.Sq, a.Sk, a.H, a.Hkv,
+                                     static_cast<T*>(a.o0), a.Sq, a.Sk, a.H, a.Hkv,
                                      a.causal, a.scale, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// variant 0: the CUDA-core kernels; 1: the bf16 tensor-core kernels (D 64
-// or 128; anything else is refused). The caller chooses.
+// variant 0: the CUDA-core kernels; 1: the tensor-core kernels (bf16 or
+// f16, D 64 or 128; anything else is refused). The caller chooses.
 template <bool DKDV>
 int dispatch(int dtype, int variant, const Args& a) {
   if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.Sq < 1 || a.Sk < 1 ||
       (a.causal && a.Sk < a.Sq))
     return (int)cudaErrorInvalidValue;
   if (variant == 1) {
-    if (dtype != ptt::kBF16 || (a.D != 64 && a.D != 128)) return (int)cudaErrorInvalidValue;
-    if (DKDV) return a.D == 64 ? tc::launch_dkdv<64>(a) : tc::launch_dkdv<128>(a);
-    return a.D == 64 ? tc::launch_dq<64>(a) : tc::launch_dq<128>(a);
+    if ((dtype != ptt::kBF16 && dtype != ptt::kF16) || (a.D != 64 && a.D != 128))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == ptt::kF16) {
+      if (DKDV) return a.D == 64 ? tc::launch_dkdv<__half, 64>(a) : tc::launch_dkdv<__half, 128>(a);
+      return a.D == 64 ? tc::launch_dq<__half, 64>(a) : tc::launch_dq<__half, 128>(a);
+    }
+    if (DKDV)
+      return a.D == 64 ? tc::launch_dkdv<__nv_bfloat16, 64>(a)
+                       : tc::launch_dkdv<__nv_bfloat16, 128>(a);
+    return a.D == 64 ? tc::launch_dq<__nv_bfloat16, 64>(a) : tc::launch_dq<__nv_bfloat16, 128>(a);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kF32) return dispatch_d<float, DKDV>(a);
   if (dtype == ptt::kBF16) return dispatch_d<__nv_bfloat16, DKDV>(a);
+  if (dtype == ptt::kF16) return dispatch_d<__half, DKDV>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -953,7 +962,7 @@ int dispatch(int dtype, int variant, const Args& a) {
 // Returns a cudaError_t code; 0 means the launch was accepted. lse and
 // delta are f32 [B, H, Sq]; every other tensor is contiguous [B, S, H(kv), D]
 // of `dtype`. `variant` is the caller's choice of kernel (ops/attention.py
-// kernel_variant): 0 CUDA cores, 1 bf16 tensor cores.
+// kernel_variant): 0 CUDA cores, 1 bf16/f16 tensor cores.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dq, int dtype, int B,
                                 int Sq, int Sk, int H, int Hkv, int D, int causal, float scale,

@@ -8,13 +8,14 @@
 // Two variants compute the same function; ops/attention.py
 // `kernel_variant` picks one on dtype and head_dim alone and passes it in.
 //
-// bf16 at head_dim 64 or 128: the tensor-core kernel (namespace tc below;
-// its design note is there). TMA streams K/V tiles into a ring that a
+// bf16 or f16 at head_dim 64 or 128: the tensor-core kernel (namespace tc
+// below; its design note is there; one template over the element type,
+// whose wgmma, register packing and tensor maps take f16 as they take bf16). TMA streams K/V tiles into a ring that a
 // producer warp keeps full; both products run on wgmma with f32
 // accumulators in registers; the online softmax runs on the accumulator
-// fragments; p goes to bf16 in registers as the A operand of P.V.
+// fragments; p goes to the storage type in registers as the A operand of P.V.
 //
-// f32, and bf16 at any other head_dim (<= 256): the CUDA-core kernel. One
+// f32, and bf16 or f16 at any other head_dim (<= 256): the CUDA-core kernel. One
 // CTA of 256 threads per (b*h, 64-row q tile); the K loop runs inside the
 // CTA and the online-softmax state lives in registers (acc, 4 rows x D/16
 // columns per thread) and shared memory (m, l, alpha per row). Q, K and V
@@ -246,7 +247,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, float* ls
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core variant (head_dim 64 or 128)
+// bf16/f16 tensor-core variant (head_dim 64 or 128)
 // ---------------------------------------------------------------------------
 //
 // One CTA of 288 threads per (b*h, 128-row q tile), the heaviest causal
@@ -262,9 +263,10 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, float* ls
 // Masking code runs only on tiles that cross the causal diagonal or Sk;
 // the dropout hash takes each element's own (row, column). p (dropout-
 // free in the normaliser, scaled after it, as the CUDA-core variant) is
-// rounded to bf16 in registers, where it is already the A fragment of
-// O += P.V (8 register-A wgmma m64nDk16, V read MN-major). O, m and l stay
-// in registers; the epilogue writes bf16 O and the f32 lse. ptxas holds
+// rounded to the storage type (bf16 or f16) in registers, where it is
+// already the A fragment of O += P.V (8 register-A wgmma m64nDk16, V read
+// MN-major). O, m and l stay in registers; the epilogue writes O in the
+// storage type and the f32 lse. ptxas holds
 // the CTA to 168 registers a thread; O (64 at D = 128), S (64) and P (32)
 // fit without spilling. 64-key tiles and a third stage were slower.
 
@@ -289,10 +291,10 @@ struct Layout {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int causal, float scale_log2,
     int use_drop, uint32_t seed, uint32_t thresh, float inv_keep) {
   using L = Layout<D>;
@@ -373,7 +375,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t at = (kk / 4) * 1u, sub = (kk % 4) * 32u;
-      s9::wgmma_ss<BK>(sc, s9::desc_k(q_addr + at * L::Q_HALF + sub),
+      s9::wgmma_ss<BK, T>(sc, s9::desc_k(q_addr + at * L::Q_HALF + sub),
                        s9::desc_k(k_addr + at * L::KV_HALF + sub), kk > 0);
     }
     s9::wgmma_commit();
@@ -420,7 +422,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
         }
         p2[e] = p;
       }
-      pa[j / 8][(j % 8) / 2] = s9::pack_bf16(p2[0], p2[1]);
+      pa[j / 8][(j % 8) / 2] = s9::pack2<T>(p2[0], p2[1]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
@@ -432,7 +434,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = s9::desc_mn(v_addr + kk * 2048u, L::KV_HALF);
-      s9::wgmma_rs<D>(o, pa[kk], dv, 1);
+      s9::wgmma_rs<D, T>(o, pa[kk], dv, 1);
     }
     s9::wgmma_commit();
     s9::wgmma_wait<0>();
@@ -446,36 +448,36 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tc_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const long q_step = (long)H * D;
-  __nv_bfloat16* ob = out + (long)b * Sq * q_step + (long)h * D;
+  T* ob = out + (long)b * Sq * q_step + (long)h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = row0 + 8 * r;
     if (qpos >= Sq) continue;
-    __nv_bfloat16* orow = ob + (long)qpos * q_step + cq;
+    T* orow = ob + (long)qpos * q_step + cq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
-      const uint32_t v2 = s9::pack_bf16(o[4 * c + 2 * r] / l[r], o[4 * c + 2 * r + 1] / l[r]);
+      const uint32_t v2 = s9::pack2<T>(o[4 * c + 2 * r] / l[r], o[4 * c + 2 * r + 1] / l[r]);
       *reinterpret_cast<uint32_t*>(orow + 8 * c) = v2;
     }
     if (lane % 4 == 0) lse[(long)bh * Sq + qpos] = m[r] * LN2 + logf(l[r]);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
            int Sk, int H, int Hkv, int causal, float scale, int use_drop, uint32_t seed,
            uint32_t thresh, float inv_keep, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  int rc = ptt::sm90::encode_bshd(&mq, q, B, Sq, H, D, BQ);
-  if (rc == 0) rc = ptt::sm90::encode_bshd(&mk, k, B, Sk, Hkv, D, BK);
-  if (rc == 0) rc = ptt::sm90::encode_bshd(&mv, v, B, Sk, Hkv, D, BK);
+  int rc = ptt::sm90::encode_bshd<T>(&mq, q, B, Sq, H, D, BQ);
+  if (rc == 0) rc = ptt::sm90::encode_bshd<T>(&mk, k, B, Sk, Hkv, D, BK);
+  if (rc == 0) rc = ptt::sm90::encode_bshd<T>(&mv, v, B, Sk, Hkv, D, BK);
   if (rc != 0) return rc;
-  auto kern = flash_fwd_tc_kernel<D>;
+  auto kern = flash_fwd_tc_kernel<T, D>;
   const int smem = Layout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  kern<<<grid, NT, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
+  kern<<<grid, NT, smem, stream>>>(mq, mk, mv, static_cast<T*>(out), lse, Sq, Sk, H,
                                    Hkv, causal, scale * LOG2E, use_drop, seed, thresh, inv_keep);
   return (int)cudaGetLastError();
 }
@@ -486,8 +488,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 
 // C interface (bound with ctypes by paddle_tpu_torch/ops/kernels/build.py).
 // `variant` is the caller's choice of kernel (ops/attention.py
-// kernel_variant): 0 the CUDA-core kernel (f32 or bf16, D <= 256), 1 the
-// bf16 tensor-core kernel (D 64 or 128; anything else is refused).
+// kernel_variant): 0 the CUDA-core kernel (f32, bf16 or f16, D <= 256),
+// 1 the tensor-core kernel (bf16 or f16, D 64 or 128; anything else is
+// refused).
 // Returns a cudaError_t code; 0 means the launch was accepted.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int dtype, int B, int Sq, int Sk, int H, int Hkv, int D, int causal,
@@ -498,11 +501,17 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (variant == 1) {
-    if (dtype != ptt::kBF16 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-    return D == 64 ? tc::launch<64>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal, scale, use_drop,
-                                    seed, thresh, inv_keep, s)
-                   : tc::launch<128>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal, scale, use_drop,
-                                     seed, thresh, inv_keep, s);
+    if ((dtype != ptt::kBF16 && dtype != ptt::kF16) || (D != 64 && D != 128))
+      return (int)cudaErrorInvalidValue;
+    if (dtype == ptt::kF16)
+      return D == 64 ? tc::launch<__half, 64>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal, scale,
+                                              use_drop, seed, thresh, inv_keep, s)
+                     : tc::launch<__half, 128>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal, scale,
+                                               use_drop, seed, thresh, inv_keep, s);
+    return D == 64 ? tc::launch<__nv_bfloat16, 64>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal,
+                                                   scale, use_drop, seed, thresh, inv_keep, s)
+                   : tc::launch<__nv_bfloat16, 128>(q, k, v, out, l, B, Sq, Sk, H, Hkv, causal,
+                                                    scale, use_drop, seed, thresh, inv_keep, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kF32)
@@ -511,5 +520,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (dtype == ptt::kBF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, l, B, Sq, Sk, H, Hkv, D, causal, scale,
                                      use_drop, seed, thresh, inv_keep, s);
+  if (dtype == ptt::kF16)
+    return dispatch_d<__half>(q, k, v, out, l, B, Sq, Sk, H, Hkv, D, causal, scale, use_drop,
+                              seed, thresh, inv_keep, s);
   return (int)cudaErrorInvalidValue;
 }

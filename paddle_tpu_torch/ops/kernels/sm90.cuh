@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels:
 // mbarriers, TMA tile loads through a tensor map, wgmma descriptors and
-// the bf16 wgmma instructions with f32 accumulators in registers.
+// the bf16 and f16 wgmma instructions with f32 accumulators in registers
+// (sm90_wgmma.cuh, once per type).
 //
-// Shared-memory tiles. TMA writes each tile of rows x D bf16 as D / 64
+// Shared-memory tiles. TMA writes each tile of rows x D 16-bit values (bf16 or f16) as D / 64
 // column halves; a half is `rows` lines of 128 bytes (64 values) in the
 // 128-byte swizzle, and starts on a 1024-byte boundary. wgmma reads the
 // same bytes through a descriptor:
@@ -16,9 +17,9 @@
 //     starts 2048 * k bytes in.
 //
 // wgmma m64nNk16 accumulator fragment (the layout every kernel here
-// relies on): thread t of a warpgroup (warp w = t / 32, lane l) holds
+// relies on; the same for bf16 and f16): thread t of a warpgroup (warp w = t / 32, lane l) holds
 // d[i], i < N / 2, at row 16 w + l / 4 + 8 ((i / 2) % 2) and column
-// 8 (i / 4) + 2 (l % 4) + (i % 2). The bf16 A fragment of a register-A
+// 8 (i / 4) + 2 (l % 4) + (i % 2). The 16-bit A fragment of a register-A
 // wgmma (four 32-bit registers per 16-wide k step) has the same layout,
 // so accumulator pairs (d[8k + 2j], d[8k + 2j + 1]), j < 4, packed low
 // then high, are the A registers of k step k.
@@ -26,9 +27,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 namespace sm90 {
@@ -141,116 +145,57 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t half_bytes) 
   return desc_encode(addr, half_bytes, 1024);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// two 16-bit values of type T packed into one 32-bit register, `lo` in the
+// low half (round to nearest even)
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+namespace bf16 {
+#define PTT_WGMMA_TYPE "bf16"
+#include "sm90_wgmma.cuh"
+#undef PTT_WGMMA_TYPE
+}  // namespace bf16
+namespace f16 {
+#define PTT_WGMMA_TYPE "f16"
+#include "sm90_wgmma.cuh"
+#undef PTT_WGMMA_TYPE
+}  // namespace f16
 
-// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers (four bf16x2 a thread),
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers (four bf16x2 a thread),
-// B MN-major in shared memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// the instructions above by width N (a compile-time constant)
-template <int N>
+// the instructions by width N (a compile-time constant) and element type T
+// (__nv_bfloat16 or __half) of A and B; the accumulator is f32 for both
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
   static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db, acc);
-  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, acc);
-  else wgmma_ss_n128(d, da, db, acc);
+  if constexpr (std::is_same_v<T, __half>) {
+    if constexpr (N == 32) f16::wgmma_ss_n32(d, da, db, acc);
+    else if constexpr (N == 64) f16::wgmma_ss_n64(d, da, db, acc);
+    else f16::wgmma_ss_n128(d, da, db, acc);
+  } else {
+    static_assert(std::is_same_v<T, __nv_bfloat16>, "wgmma_ss: T is __nv_bfloat16 or __half");
+    if constexpr (N == 32) bf16::wgmma_ss_n32(d, da, db, acc);
+    else if constexpr (N == 64) bf16::wgmma_ss_n64(d, da, db, acc);
+    else bf16::wgmma_ss_n128(d, da, db, acc);
+  }
 }
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int acc) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
-  else wgmma_rs_n128(d, a, db, acc);
+  if constexpr (std::is_same_v<T, __half>) {
+    if constexpr (N == 64) f16::wgmma_rs_n64(d, a, db, acc);
+    else f16::wgmma_rs_n128(d, a, db, acc);
+  } else {
+    static_assert(std::is_same_v<T, __nv_bfloat16>, "wgmma_rs: T is __nv_bfloat16 or __half");
+    if constexpr (N == 64) bf16::wgmma_rs_n64(d, a, db, acc);
+    else bf16::wgmma_rs_n128(d, a, db, acc);
+  }
 }
 
 // ---- host: tensor maps --------------------------------------------------------
@@ -277,11 +222,12 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 [B, S, Hh, D] tensor whose box is
+// A tensor map over a contiguous 16-bit (T: __nv_bfloat16 or __half) [B, S, Hh, D] tensor whose box is
 // one head's `rows` x 64 columns, 128-byte swizzled: coordinates
 // (column, head, row, batch). Rows past S read as zeros. The base must be
 // 16-byte aligned (the driver refuses the map otherwise). Returns a
 // cudaError_t code.
+template <typename T>
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int Hh, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -290,7 +236,9 @@ inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int Hh, 
                                  (cuuint64_t)S * Hh * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  constexpr CUtensorMapDataType dt = std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = fn(map, dt, 4, const_cast<void*>(ptr), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

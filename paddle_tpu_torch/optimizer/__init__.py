@@ -1,5 +1,6 @@
 """SGD, Momentum, Adam and AdamW (Adam/AdamW with the flat-bucket fused
-engine behind FLAGS_fused_optimizer), and the LR schedulers (lr.py)."""
+engine behind FLAGS_fused_optimizer; param groups and state dicts in the
+JAX package's format), and the LR schedulers (lr.py)."""
 from . import lr
 from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 

@@ -14,6 +14,11 @@ are concatenated into flat copies each step and the new params are
 copied back into each parameter (paddle_tpu/optimizer/fused_engine.py
 :298-330); making the parameters views of their bucket is later work.
 A global-norm clip enters the kernel as one scalar operand on the device.
+Param groups partition separately, in group order, each with its own
+clip; buckets of one key share the engine's `buckets` as in the JAX
+engine. A bf16 parameter (amp.decorate O2) has a bf16 bucket: the kernel
+updates in f32 and stores bf16, with no master copy. `view_into` shows
+the moments and beta powers per parameter for `state_dict`.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ..ops.fused_optimizer import fused_adamw_apply, pad_to_tile
 from ..nn.clip import ClipGradByGlobalNorm
+from ..ops.fused_optimizer import fused_adamw_apply, pad_to_tile
+from ..regularizer import L1Decay
 
 
 class FlatAdamWEngine:
@@ -42,7 +48,9 @@ class FlatAdamWEngine:
         buckets = defaultdict(list)
         rest = []
         for p, g, wd, s in entries:
-            if p.dtype in (torch.float32, torch.bfloat16) and g.shape == p.shape:
+            fusable = (not isinstance(wd, L1Decay) and p.dtype in (torch.float32, torch.bfloat16)
+                       and g.shape == p.shape)
+            if fusable:
                 key = (p.dtype, _wd_value(wd), float(s), bool(getattr(p, "need_clip", True)))
                 buckets[key].append((p, g))
             else:
@@ -100,25 +108,43 @@ class FlatAdamWEngine:
             b = self._build_bucket(key, plist)
         return b
 
-    def step(self, clip, entries):
-        """entries = [(p, g, wd, lr_scale)] with UNCLIPPED grads."""
+    def step(self, groups):
+        """groups = [(clip, entries)], entries = [(p, g, wd, lr_scale)] with
+        UNCLIPPED grads (Optimizer._collect_groups)."""
         opt = self.opt
-        entries = [(p, g, opt._effective_wd(p, wd), s) for p, g, wd, s in entries]
-        scale = None
-        if isinstance(clip, ClipGradByGlobalNorm):
-            # the norm is reduced here; the scaling rides the kernel as an operand
-            scale = clip.global_scale([g for p, g, _, _ in entries if getattr(p, "need_clip", True)])
-        elif clip is not None:
-            # a clip with no scalar form: apply it first
-            pgs = clip([(p, g) for p, g, _, _ in entries])
-            entries = [(p, g2, wd, s) for (p, _, wd, s), (_, g2) in zip(entries, pgs)]
-        buckets, rest = self._partition(entries)
-        for key, plist in buckets.items():
-            self._apply_bucket(key, plist, scale)
-        for p, g, wd, s in rest:
-            if scale is not None and getattr(p, "need_clip", True):
-                g = g * scale.to(g.dtype)
-            opt._apply_one(p, g, wd, s)
+        for clip, entries in groups:
+            entries = [(p, g, opt._effective_wd(p, wd), s) for p, g, wd, s in entries]
+            scale = None
+            if isinstance(clip, ClipGradByGlobalNorm):
+                # the norm is reduced here; the scaling rides the kernel as an operand
+                scale = clip.global_scale([g for p, g, _, _ in entries
+                                           if getattr(p, "need_clip", True)])
+            elif clip is not None:
+                # a clip with no scalar form: apply it first
+                pgs = clip([(p, g) for p, g, _, _ in entries])
+                entries = [(p, g2, wd, s) for (p, _, wd, s), (_, g2) in zip(entries, pgs)]
+            buckets, rest = self._partition(entries)
+            for key, plist in buckets.items():
+                self._apply_bucket(key, plist, scale)
+            for p, g, wd, s in rest:
+                if scale is not None and getattr(p, "need_clip", True):
+                    g = g * scale.to(g.dtype)
+                opt._apply_one(p, g, wd, s)
+
+    def materialize(self, groups) -> int:
+        """Build the buckets (and the rest's accumulators) of the current
+        composition without updating anything; returns the number of
+        updates the next step makes (one per bucket and per rest param)."""
+        opt, n = self.opt, 0
+        for _, entries in groups:
+            entries = [(p, g, opt._effective_wd(p, wd), s) for p, g, wd, s in entries]
+            buckets, rest = self._partition(entries)
+            for key, plist in buckets.items():
+                self._bucket_for(key, plist)
+            for p, _, _, _ in rest:
+                opt._materialize_one(p)
+            n += len(buckets) + len(rest)
+        return n
 
     def _apply_bucket(self, key, plist, clip_scale):
         opt = self.opt
@@ -162,3 +188,14 @@ class FlatAdamWEngine:
         for b in list(self.buckets.values()):
             self._defuse_bucket(b)
         self.buckets.clear()
+
+    def view_into(self, view) -> None:
+        """Each bucket's state as per-param values in `view` (name ->
+        {id(param): value}): views of the flat moments, the bucket's beta
+        powers (the state dict's format is the per-tensor path's)."""
+        for b in self.buckets.values():
+            for pid, (off, size, shape) in b["index"].items():
+                view.setdefault("moment1", {})[pid] = b["moment1"][off:off + size].view(shape)
+                view.setdefault("moment2", {})[pid] = b["moment2"][off:off + size].view(shape)
+                view.setdefault("beta1_pow", {})[pid] = b["beta1_pow"]
+                view.setdefault("beta2_pow", {})[pid] = b["beta2_pow"]

@@ -4,7 +4,9 @@ Python: LRScheduler and its 17 schedulers).
 A scheduler owns a Python float, `last_lr`; `step()` advances it. An
 optimizer built with a scheduler reads `last_lr` at every `step()` and
 rounds it to float32 there (Optimizer._sync_lr), as the JAX package
-mirrors it into an f32 device scalar.
+mirrors it into an f32 device scalar. One departure from the copy:
+`LinearWarmup.set_state_dict` loads the wrapped scheduler's state into it
+(the JAX package's replaces the scheduler with the dict).
 """
 from __future__ import annotations
 
@@ -126,6 +128,17 @@ class LinearWarmup(LRScheduler):
         if self.lr_sched is not None:
             d["lr_sched"] = self.lr_sched.state_dict()
         return d
+
+    def set_state_dict(self, state):
+        """The wrapped scheduler's state goes into it (the JAX package's
+        copy puts the dict in its place, and the next get_lr fails)."""
+        state = dict(state)
+        inner = state.pop("lr_sched", None)
+        super().set_state_dict(state)
+        if inner is not None and self.lr_sched is not None:
+            self.lr_sched.set_state_dict(inner)
+
+    set_dict = set_state_dict
 
 
 class ExponentialDecay(LRScheduler):

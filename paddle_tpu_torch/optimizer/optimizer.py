@@ -9,20 +9,37 @@ With it off they take the JAX package's per-tensor path in plain torch
 (weight decay, lr scale) group that share a shape update as one stacked
 tensor (`_apply_fused`), a lone parameter alone (`_apply_one`). SGD and
 Momentum update tensor by tensor, in plain torch, as the JAX package
-does. The update math and its rounding points are the JAX package's.
+does. The update math and its rounding points are the JAX package's; a
+bf16 parameter (amp.decorate O2) updates in f32 and rounds back to bf16
+every step, with no f32 master copy, as there.
+
+`parameters` is a list of params (or of `named_parameters()` pairs), or
+a list of param-group dicts: `params`, and optionally `learning_rate` (a
+scale of the optimizer's lr), `weight_decay` and `grad_clip`, each
+overriding the optimizer's for its group. A parameter's own
+`optimize_attr["learning_rate"]` multiplies its group's scale and its
+`regularizer` replaces the group's decay (nn.ParamAttr sets both); the
+clip skips a parameter whose `need_clip` is False.
 
 The learning rate is a number or an LRScheduler (lr.py); `step()` reads
 the scheduler's `last_lr` and rounds it to f32, as the JAX package does.
 `weight_decay` is a float, an L2Decay or an L1Decay (regularizer.py).
-State moves between the two Adam paths (and between buckets when the set
-of parameters with a gradient changes) through `_pending_state`, as in
-the JAX package. Not ported yet: `state_dict`/`set_state_dict`, param
-groups (a list of dicts raises) and per-param lr scales or regularizers,
-the optimizers other than SGD, Momentum, Adam and AdamW.
+
+`state_dict()` is the JAX package's format, whatever path holds the
+state: `<accumulator>_<i>` for the i-th parameter in group order
+(`moment1_3`, `moment2_3`, `beta1_pow_3`, ...), `@step` and
+`LR_Scheduler`. Its tensors are the live state (views into a flat or
+stacked bucket), as torch's own optimizers hand theirs out.
+`set_state_dict()` dissolves every bucket and parks the loaded values in
+`_pending_state`, where the next step's buckets or accumulators pick them
+up, so a checkpoint loads before the first step and moves between the
+flat, stacked and per-tensor paths. Not ported: the optimizers other than
+SGD, Momentum, Adam and AdamW.
 """
 from __future__ import annotations
 
 import numbers
+import re
 from collections import defaultdict
 
 import numpy as np
@@ -30,6 +47,7 @@ import torch
 
 from ..framework import dtype as _dtype
 from ..framework import flags as _flags
+from ..framework import io as _io
 from ..framework import random as _random
 from ..ops.fused_optimizer import _sr_bits_flat, _update_math
 from ..regularizer import L1Decay
@@ -77,32 +95,47 @@ class Optimizer:
         self._lr_scheduler = learning_rate if isinstance(learning_rate, LRScheduler) else None
         if self._lr_scheduler is None and not isinstance(learning_rate, numbers.Real):
             raise TypeError(f"learning_rate must be a number or an LRScheduler, got {learning_rate!r}")
-        self._params = self._build_params(parameters)
+        self._param_groups = self._build_param_groups(parameters)
+        self._params = [p for _, p in self._all_params()]
         # the JAX package keeps it as an f32 scalar
         self._lr = _f32(self._lr_scheduler.last_lr if self._lr_scheduler else learning_rate)
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
+        self._step_count = 0  # "@step": steps taken (a skipped step does not count)
         self._accumulators: dict = defaultdict(dict)  # name -> {id(param): tensor or f32}
         self._pending_state: dict = {}  # (name, id(param)) -> value awaiting a new home
         self._fused_buckets: dict = {}  # ids tuple -> stacked bucket (see Adam._apply_fused)
         self._flat_engine = None  # FLAGS_fused_optimizer engine (fused_engine.py)
 
     # ---- params ----
-    def _build_params(self, parameters):
-        """A list of params, or of (name, param) pairs (`named_parameters()`:
-        torch tensors carry no paddle-style name, so this is how a name
-        reaches `apply_decay_param_fun`)."""
+    def _build_param_groups(self, parameters):
+        """[{"params": [...], ...}]: one group for a list of params, or the
+        given param-group dicts. A param may come as a (name, param) pair
+        (`named_parameters()`: torch tensors carry no paddle-style name, so
+        this is how a name reaches `apply_decay_param_fun`)."""
         self._param_names = {}
-        params = []
-        for x in parameters:
-            if isinstance(x, dict):
-                raise NotImplementedError("param groups (a list of dicts) are not ported yet "
-                                          "(ROADMAP Queue A item 2); pass the parameters")
+
+        def unname(x):
             if isinstance(x, tuple):
                 self._param_names[id(x[1])] = x[0]
-                x = x[1]
-            params.append(x)
-        return params
+                return x[1]
+            return x
+
+        params = list(parameters)
+        if params and isinstance(params[0], dict):
+            groups = []
+            for g in params:
+                g = dict(g)
+                g["params"] = [unname(x) for x in g["params"]]
+                groups.append(g)
+            return groups
+        return [{"params": [unname(x) for x in params]}]
+
+    def _all_params(self):
+        """(group, param) in the order that numbers the state dict's keys."""
+        for g in self._param_groups:
+            for p in g["params"]:
+                yield g, p
 
     # ---- lr ----
     def get_lr(self) -> float:
@@ -123,9 +156,11 @@ class Optimizer:
             self._lr = _f32(self._lr_scheduler.last_lr)
 
     def _lr_value(self, lr_scale) -> float:
-        """The lr of an entry; every entry's scale is 1.0 (per-param lr
-        scales and param groups are not ported)."""
-        return self._lr
+        """The lr of an entry: the f32 lr times its scale, rounded to f32
+        (the JAX package's f32 scalar times a Python float)."""
+        if lr_scale == 1.0:
+            return self._lr
+        return _f32(np.float32(self._lr) * np.float32(lr_scale))
 
     # ---- accumulators ----
     def _add_accumulator(self, name, param, fill=0.0, dtype=None):
@@ -150,20 +185,65 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         self._sync_lr()
+        self._step_count += 1
         self._step_impl()
 
-    def _step_impl(self):
-        entries = self._collect_entries()
-        if entries and self._grad_clip is not None:
-            pgs = self._grad_clip([(p, g) for p, g, _, _ in entries])
-            entries = [(p, g2, wd, s) for (p, _, wd, s), (_, g2) in zip(entries, pgs)]
-        self._apply_entries(entries)
+    @torch.no_grad()
+    def _skip_step(self) -> None:
+        """A step skipped for a non-finite gradient (amp.GradScaler): what
+        the JAX package's step leaves once it has blended every tensor back
+        (paddle_tpu/amp/__init__.py:193-233). The lr is synced, state a step
+        would create is created at its fill, and the stochastic-rounding
+        seeds the step would draw are drawn, so the next step rounds with
+        the JAX package's bits; no parameter or state value changes and
+        `@step` stays."""
+        self._sync_lr()
+        for _ in range(self._materialize_state()):
+            self._m2_key()
 
-    def _collect_entries(self):
-        """[(param, grad, weight_decay, lr_scale)] for every param with a
-        grad, grads UNCLIPPED (the JAX package's single-group case)."""
-        return [(p, p.grad, self._weight_decay, 1.0) for p in self._params
-                if p.requires_grad and p.grad is not None]
+    def _materialize_state(self) -> int:
+        """Create the state the next step would create, without updating
+        anything; returns how many stochastic-rounding seeds that step draws.
+        Adam/AdamW build their buckets and accumulators here; SGD draws
+        nothing, and Momentum's velocity appears at its next finite step
+        (zeros, as the skipped step would have left it)."""
+        return 0
+
+    def _step_impl(self):
+        for entries in self._collect_entries():
+            self._apply_entries(entries)
+
+    def _collect_groups(self):
+        """Per param group: (clip, [(param, grad, weight_decay, lr_scale)])
+        with UNCLIPPED grads and each param's overrides resolved (its
+        `optimize_attr` lr scale times the group's, its `regularizer` over
+        the group's decay)."""
+        out = []
+        for group in self._param_groups:
+            clip = group.get("grad_clip", self._grad_clip)
+            wd = group.get("weight_decay", self._weight_decay)
+            lr_scale = group.get("learning_rate", 1.0)
+            entries = []
+            for p in group["params"]:
+                if not p.requires_grad or p.grad is None:
+                    continue
+                p_scale = lr_scale * getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+                p_wd = getattr(p, "regularizer", None)
+                entries.append((p, p.grad, p_wd if p_wd is not None else wd, p_scale))
+            if entries:
+                out.append((clip, entries))
+        return out
+
+    def _collect_entries(self, apply_clip=True):
+        """Per param group: [(param, grad, weight_decay, lr_scale)], the grads
+        clipped by the group's clip unless apply_clip is False."""
+        out = []
+        for clip, entries in self._collect_groups():
+            if clip is not None and apply_clip:
+                pgs = clip([(p, g) for p, g, _, _ in entries])
+                entries = [(p, g2, wd, s) for (p, _, wd, s), (_, g2) in zip(entries, pgs)]
+            out.append(entries)
+        return out
 
     def _apply_entries(self, entries):
         for p, g, wd, s in entries:
@@ -208,6 +288,74 @@ class Optimizer:
         self._fused_buckets.clear()
         if self._flat_engine is not None:
             self._flat_engine.defuse_all()
+
+    # ---- state dict ----
+    def _accumulator_view(self):
+        """name -> {id(param): value} over every place state lives: the
+        per-param accumulators, the stacked and flat buckets (as per-param
+        views) and state loaded but not yet placed."""
+        view = {name: dict(store) for name, store in self._accumulators.items()}
+        for st in self._fused_buckets.values():
+            for grp in st["groups"]:
+                for i, pid in enumerate(grp["ids"]):
+                    view.setdefault("moment1", {})[pid] = grp["moment1"][i]
+                    view.setdefault("moment2", {})[pid] = grp["moment2"][i]
+                    view.setdefault("beta1_pow", {})[pid] = st["beta1_pow"]
+                    view.setdefault("beta2_pow", {})[pid] = st["beta2_pow"]
+        if self._flat_engine is not None:
+            self._flat_engine.view_into(view)
+        for (nm, pid), v in self._pending_state.items():
+            view.setdefault(nm, {}).setdefault(pid, v)
+        return view
+
+    def state_dict(self) -> dict:
+        """The JAX package's optimizer state dict
+        (paddle_tpu/optimizer/optimizer.py:318-330): `<name>_<i>` by the
+        param's place in group order, `LR_Scheduler`, `@step` (int64). The
+        beta powers are 0-d f32 tensors; the moments the live tensors."""
+        sd = {}
+        for name, store in self._accumulator_view().items():
+            for i, (_, p) in enumerate(self._all_params()):
+                if id(p) in store:
+                    v = store[id(p)]
+                    sd[f"{name}_{i}"] = (v if isinstance(v, torch.Tensor)
+                                         else torch.tensor(np.float32(v)))
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
+        sd["@step"] = torch.tensor(self._step_count, dtype=torch.int64)
+        return sd
+
+    def set_state_dict(self, sd) -> None:
+        """Load `state_dict()` output (this package's or the JAX package's,
+        through paddle.load or in memory). Every bucket is dissolved first;
+        each loaded value replaces an existing accumulator or waits in
+        `_pending_state` for the step that creates one, so loading before
+        the first step works. Tensors are copied onto the param's device in
+        their own dtype; beta powers become host f32 scalars."""
+        self._defuse_all()
+        for key, v in sd.items():
+            m = re.fullmatch(r"(.+)_(\d+)", key)
+            if not m:
+                continue
+            name, idx = m.group(1), int(m.group(2))
+            if idx >= len(self._params):
+                continue
+            p = self._params[idx]
+            if name.endswith("_pow"):
+                val = np.float32(float(v))
+            else:
+                t = v if isinstance(v, torch.Tensor) else _io.numpy_to_tensor(v)
+                val = t.detach().to(device=p.device, copy=True)
+            store = self._accumulators.get(name)
+            if store is not None and id(p) in store:
+                store[id(p)] = val
+            else:
+                self._pending_state[(name, id(p))] = val
+        if "LR_Scheduler" in sd and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(sd["LR_Scheduler"])
+            self._sync_lr()
+        if "@step" in sd:
+            self._step_count = int(sd["@step"])
 
 
 class SGD(Optimizer):
@@ -282,7 +430,7 @@ class Adam(Optimizer):
 
     def _step_impl(self):
         if self._use_flat_fusion():
-            self._flat_engine_or_create().step(self._grad_clip, self._collect_entries())
+            self._flat_engine_or_create().step(self._collect_groups())
             return
         if self._flat_engine is not None and self._flat_engine.buckets:
             # the flag went off mid-training: flat state moves to per-param pending
@@ -306,11 +454,45 @@ class Adam(Optimizer):
         rest = []
         for p, g, wd, s in entries:
             wd = self._effective_wd(p, wd)
-            if p.dtype == torch.float32 and g.shape == p.shape:
+            if not isinstance(wd, L1Decay) and p.dtype == torch.float32 and g.shape == p.shape:
                 buckets[(_wd_value(wd), float(s))].append((p, g))
             else:
                 rest.append((p, g, wd, s))
         return buckets, rest
+
+    def _materialize_state(self) -> int:
+        """Build the buckets and accumulators the next step would use (the
+        JAX package's `_materialize_state`, and the accumulators its skipped
+        step leaves at their fill); returns the stochastic-rounding seeds
+        that step draws: one per flat bucket, per stacked shape group and per
+        parameter updated alone, with a bf16 moment2."""
+        if self._use_flat_fusion():
+            n = self._flat_engine_or_create().materialize(self._collect_groups())
+        else:
+            n = 0
+            for entries in self._collect_entries(apply_clip=False):
+                buckets, rest = self._fuse_partition(entries)
+                for plist in buckets.values():
+                    if len(plist) > 1:
+                        ids = tuple(id(p) for p, _ in plist)
+                        st = self._fused_buckets.get(ids) or self._build_bucket(plist)
+                        n += len(st["groups"])
+                    else:
+                        self._materialize_one(plist[0][0])
+                        n += 1
+                for p, _, _, _ in rest:
+                    self._materialize_one(p)
+                    n += 1
+        return n if self._m2_dtype == torch.bfloat16 else 0
+
+    def _materialize_one(self, p) -> None:
+        """The accumulators `_apply_one` creates for `p`, at their fill."""
+        self._add_accumulator("moment1", p)
+        self._add_accumulator("moment2", p, dtype=self._m2_dtype)
+        for nm in ("beta1_pow", "beta2_pow"):
+            if id(p) not in self._accumulators[nm]:
+                self._accumulators[nm][id(p)] = self._pending_state.pop((nm, id(p)),
+                                                                        np.float32(1.0))
 
     def _build_bucket(self, plist):
         ids = tuple(id(p) for p, _ in plist)

@@ -201,9 +201,16 @@ def test_ernie_init_follows_the_reference():
 
 
 def test_param_attr_rejects_what_is_not_ported():
-    for kw in (dict(learning_rate=0.5), dict(regularizer=object()), dict(need_clip=False)):
-        with pytest.raises(NotImplementedError):
-            ptt.nn.ParamAttr(**kw)
+    """Everything a ParamAttr names is ported now (lr scale, regularizer and
+    need_clip used to raise): they land on the parameter, where the
+    optimizer and the clip read them, as the JAX package's create_parameter
+    puts them."""
+    reg = ptt.regularizer.L2Decay(0.1)
+    w = ptt.nn.LayerNorm(4, weight_attr=ptt.nn.ParamAttr(learning_rate=0.5, regularizer=reg,
+                                                         need_clip=False)).weight
+    assert (w.optimize_attr, w.regularizer, w.need_clip) == ({"learning_rate": 0.5}, reg, False)
+    b = ptt.nn.LayerNorm(4).bias
+    assert (b.optimize_attr, b.regularizer, b.need_clip) == ({"learning_rate": 1.0}, None, True)
     attr = ptt.nn.ParamAttr(initializer=ptt.nn.initializer.Constant(0.5))
     assert bool((ptt.nn.LayerNorm(4, weight_attr=attr).weight == 0.5).all())
     assert ptt.nn.LayerNorm(4, bias_attr=False).bias is None

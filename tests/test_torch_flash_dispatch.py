@@ -2,9 +2,9 @@
 C entry points. CPU only: nothing here builds or launches a kernel.
 
 `ops.attention.kernel_variant` is the one place the choice is made, on
-dtype and head dim alone: bf16 at head dim 64 or 128 takes the tensor-core
-(wgmma) kernels of the flash forward, dq and dk/dv; everything else the
-CUDA-core kernels."""
+dtype and head dim alone: bf16 or float16 at head dim 64 or 128 takes the
+tensor-core (wgmma) kernels of the flash forward, dq and dk/dv; everything
+else the CUDA-core kernels."""
 import ctypes
 import re
 from pathlib import Path
@@ -23,9 +23,10 @@ _KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
     (torch.bfloat16, 64), (torch.bfloat16, 128),                 # Llama-3 128, ERNIE-3.0 64
     (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 96), (torch.bfloat16, 256),
     (torch.float32, 64), (torch.float32, 128),                   # f32 never takes TF32
+    (torch.float16, 64), (torch.float16, 128), (torch.float16, 96),  # AMP O1 float16
 ])
 def test_kernel_variant_rule(kernel, dtype, head_dim):
-    tc = dtype == torch.bfloat16 and head_dim in (64, 128)
+    tc = dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128)
     assert ta.kernel_variant(kernel, dtype, head_dim) == ("wgmma" if tc else "cuda_core")
 
 
@@ -33,7 +34,20 @@ def test_kernel_variant_takes_no_other_input():
     """The rule reads dtype and head dim only: no flag or environment."""
     assert ta.TC_KERNELS == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
     assert ta.TC_HEAD_DIMS == (64, 128)
+    assert ta.TC_DTYPES == (torch.bfloat16, torch.float16)
     assert set(ta._VARIANT_CODE) == {"cuda_core", "wgmma"}
+
+
+def test_dtype_codes_match_the_c_enum():
+    """The wrappers' dtype codes are common.cuh's `DType` values, float16
+    among them (the flash wrappers refused it before it was ported), and
+    every flash storage type has one."""
+    text = (Path(build.__file__).parent / "common.cuh").read_text()
+    enum = dict(re.findall(r"(k\w+) = (\d+)", re.search(r"enum DType \{([^}]*)\}", text).group(1)))
+    names = {torch.float32: "kF32", torch.bfloat16: "kBF16", torch.int8: "kI8",
+             torch.float16: "kF16"}
+    assert {names[d]: str(c) for d, c in ta._DTYPE_CODE.items()} == enum
+    assert set(ta.FLASH_DTYPES) <= set(ta._DTYPE_CODE)
 
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "unsigned int": ctypes.c_uint,

@@ -16,11 +16,15 @@ from paddle_tpu_torch.ops import attention as ta
 def _assert_close(got, want, dt, floor=0.0):
     """Per output row w (D values): each element within
     rtol * |w| + atol_rms * rms(w), and the row within a relative L2
-    error; the same rule and limits as chip_smoke.py's. `floor` raises
-    each row's scale to at least that share of the whole tensor's RMS (a
-    gradient row can be ~0 by cancellation while its rounding error
-    follows its terms)."""
-    rtol, atol_rms, row = (2e-2, 5e-2, 1e-2) if dt == torch.bfloat16 else (1e-5, 5e-5, 1e-5)
+    error; the same rule and limits as chip_smoke.py's (float16: its
+    TOL["fp16"], and TOL["fp16_grad"] for a gradient, given with a floor).
+    `floor` raises each row's scale to at least that share of the whole
+    tensor's RMS (a gradient row can be ~0 by cancellation while its
+    rounding error follows its terms)."""
+    if dt == torch.float16:
+        rtol, atol_rms, row = (4e-3, 5e-3, 2e-3) if floor else (4e-3, 8e-3, 2e-3)
+    else:
+        rtol, atol_rms, row = (2e-2, 5e-2, 1e-2) if dt == torch.bfloat16 else (1e-5, 5e-5, 1e-5)
     d = want.shape[-1]
     got, want = got.float().reshape(-1, d), want.float().reshape(-1, d)
     err = (got - want).abs()
@@ -177,6 +181,89 @@ def test_cuda_tensor_core_flash_matches_plain(kernel, case):
         for a, w in zip(got, want):
             _assert_close(a, w, torch.bfloat16, floor=0.1)
     assert ta.LAUNCHES[kernel] == before[kernel] + 1
+
+
+# (b, sq, sk, h, hkv, d, causal, dropout_p) of the float16 cases: the
+# tensor-core variant at the Llama and ERNIE head dims, and head_dim 96,
+# which only the CUDA-core variant takes
+_FP16_CASES = {
+    "d128_gqa_causal": (1, 256, 256, 8, 2, 128, True, 0.0),
+    "d128_ragged_causal": (2, 300, 777, 8, 2, 128, True, 0.0),
+    "d128_dropout": (1, 256, 256, 8, 2, 128, True, 0.1),
+    "d64_ernie_seq128_dropout": (4, 128, 128, 12, 12, 64, False, 0.1),
+    "d96_cuda_core_causal": (1, 256, 256, 8, 2, 96, True, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("case", sorted(_FP16_CASES))
+def test_cuda_fp16_flash_matches_plain(kernel, case):
+    """On the card: the float16 flash forward, dq and dk/dv (the wgmma
+    variant at head dim 64/128, the CUDA-core one at 96) through their
+    wrappers, one launch each, against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    b, sq, sk, h, hkv, d, causal, p = _FP16_CASES[case]
+    assert ta.kernel_variant(kernel, torch.float16, d) == ("wgmma" if d in (64, 128)
+                                                           else "cuda_core")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.float16)
+    q, k, v, do = rn(b, sq, h, d), rn(b, sk, hkv, d), rn(b, sk, hkv, d), rn(b, sq, h, d)
+    scale = 1.0 / math.sqrt(d)
+    before = dict(ta.LAUNCHES)
+    out, lse = ta.flash_attention_bshd_lse(q, k, v, causal=causal, dropout_p=p, dropout_seed=9)
+    assert out.dtype == torch.float16
+    if kernel == "flash_fwd":
+        want, lse_w = ta._flash_plain(q, k, v, causal, scale, p, 9)
+        _assert_close(out, want, torch.float16)
+        torch.testing.assert_close(lse, lse_w, rtol=1e-4, atol=1e-4)
+    else:
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, causal, scale, p, 9)
+        if kernel == "flash_bwd_dq":
+            got, want = (ta._flash_bwd_dq_cuda(*args),), ta._flash_bwd_plain(*args)[:1]
+        else:
+            got, want = ta._flash_bwd_dkdv_cuda(*args), ta._flash_bwd_plain(*args)[1:]
+        for a, w in zip(got, want):
+            assert a.dtype == torch.float16
+            _assert_close(a, w, torch.float16, floor=0.1)
+    assert ta.LAUNCHES[kernel] == before[kernel] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m2", [torch.float32, torch.bfloat16])
+def test_cuda_fused_adamw_bf16_params_matches_plain(m2):
+    """On the card: the fused AdamW kernel on a bf16 P (amp.decorate O2, no
+    master copy) rounds as the plain version does: P bit-identical, m
+    within one f32 ulp, a bf16 moment2's bits as in the f32-P case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README, PyTorch/CUDA port)")
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = fo.PAD_ELEMS * 64
+    rn = lambda: torch.randn(n, generator=g, device=dev)
+    p, m, grad = (rn() * 0.02).to(torch.bfloat16), rn() * 1e-4, rn() * 1e-3
+    v = (rn() * 1e-4).square().to(m2)
+    kw = dict(lr=1e-3, clip_scale=0.5, c1=0.271, c2=0.002997, seed=0x9E3779B9, beta1=0.9,
+              beta2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+    scal = fo._scalars(kw["lr"], kw["clip_scale"], kw["c1"], kw["c2"], dev)
+    wp, wm, wv = fo._reference_apply(p, m, v, grad, scal, kw["seed"], 0.9, 0.999, 1e-8, 0.01, True,
+                                     m2 == torch.bfloat16)
+    before = fo.LAUNCHES["fused_adamw"]
+    fo.fused_adamw_apply(p, m, v, grad, **kw)
+    assert fo.LAUNCHES["fused_adamw"] == before + 1
+    assert p.dtype == torch.bfloat16 and torch.equal(p.view(torch.int16), wp.view(torch.int16))
+    torch.testing.assert_close(m, wm, rtol=2.0 ** -22, atol=0)
+    if m2 == torch.bfloat16:
+        kb, wb = v.view(torch.int16).int(), wv.view(torch.int16).int()
+        assert (kb == wb).float().mean().item() >= 0.9999
+        assert (kb - wb).abs().max().item() <= 1
+    else:
+        torch.testing.assert_close(v, wv, rtol=2.0 ** -22, atol=0)
 
 
 @pytest.mark.cuda

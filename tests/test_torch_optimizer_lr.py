@@ -161,7 +161,8 @@ def test_optimizer_lr_plumbing():
 def test_regularizer_decay_in_adamw_and_param_groups_refused():
     """An L2Decay as Adam/AdamW's weight_decay is its coefficient (it used
     to fail in float()), as in the JAX package; a list of param-group
-    dicts raises NotImplementedError naming where the work is queued."""
+    dicts (refused until param groups were ported) now trains, its
+    `learning_rate` a scale of the optimizer's lr."""
     results = []
     for wd in (0.01, ptt.regularizer.L2Decay(0.01)):
         p = torch.nn.Parameter(torch.arange(4.0))
@@ -171,7 +172,13 @@ def test_regularizer_decay_in_adamw_and_param_groups_refused():
         results.append(p.detach().clone())
     assert torch.equal(results[0], results[1])
     assert repr(ptt.regularizer.L1Decay(0.5)) == "L1Decay(0.5)"
-    p = torch.nn.Parameter(torch.zeros(2))
     for cls in (ptt.optimizer.Momentum, ptt.optimizer.AdamW):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            cls(0.1, parameters=[{"params": [p], "learning_rate": 0.5}])
+        moved = []
+        for lr, groups in ((0.1, True), (0.05, False)):
+            p = torch.nn.Parameter(torch.arange(2.0))
+            params = [{"params": [p], "learning_rate": 0.5}] if groups else [p]
+            opt = cls(lr, parameters=params)
+            p.grad = torch.tensor([0.5, -2.0])
+            opt.step()
+            moved.append(p.detach().clone())
+        assert torch.equal(moved[0], moved[1]), cls  # 0.1 x 0.5 rounds to f32(0.05)
