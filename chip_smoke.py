@@ -71,6 +71,26 @@ Phases, one line each (any failure raises and exits non-zero):
                  without to_static; losses finite and falling, no hand-written
                  kernel launched (none lies on this path), ms/step, images/s,
                  MFU, peak memory, a profiled split
+  ocr_parity     OCRSystem's tiny DBNet(8, 32) and CRNN(11, 32) from one state
+                 on the card and on the CPU, f32: DBNet's train maps, db_loss
+                 and grads, its eval prob map (the batch norms' buffers);
+                 CRNN's logits, CTC loss and grads; the port's CTC gradient
+                 against torch's ctc_loss on the card; db_postprocess and
+                 ctc_greedy_decode of one numpy input given as a card tensor
+  ppocr_e2e      bench.py's PP-OCR (_build_ppocr) on the port: OCRSystem() at
+                 its defaults, a 640x640 page and 3 crops of 3x32x100, det and
+                 rec through to_static timed by the bench's slope over 8
+                 images; device busy and idle share a call by op kind (cuDNN
+                 conv, transposed conv, LSTM steps) and the host postprocess;
+                 OCRSystem.forward end to end (host crop and resize included)
+  ocr_train      DBNet with db_loss at B8 640x640 and CRNN with CTC at B128
+                 3x32x100, default widths, 5 Adam steps each: ms/step,
+                 images/s, peak memory; every loss and every grad finite
+  ppyoloe        the tiny PPYOLOE(4, 8, 32) card against CPU (loss, outputs,
+                 grads, decode, infer); PPYOLOE() (80 classes) at B1 640x640:
+                 forward, decode and nms ms, nms's n and sweeps, its indices
+                 equal to the CPU port's on the same boxes; B8 640x640
+                 training with ppyoloe_loss, 5 Adam steps
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -2240,6 +2260,543 @@ def resnet50_train(ptt, ta, state, warmup=2, steps=10, eager_steps=4):
     torch.cuda.empty_cache()
 
 
+# --- PP-OCR det+rec and PP-YOLOE (models/ocr.py, models/detection.py) --------
+# Parity runs in f32 (TF32 off) held to resnet_parity's limits: losses and
+# forward outputs within 1e-5, step-1 grads within 2e-3, relative L2. A grad
+# that is 0 by construction (a bias feeding a batch norm) is rounding noise in
+# both runs and is held to be noise (below 1e-6 of the model's largest grad).
+OCR_TOL = dict(loss=RESNET_F32_TOL["loss"], out=RESNET_F32_TOL["loss"], grad=RESNET_F32_TOL["grad"])
+# two 64x64 pages: one page's 2x2 stride-32 maps give each batch norm 4 values
+# there, and f32 rounding alone then moves the binary map by ~3e-5 (CPU, f64)
+PARITY_PAGES, PARITY_HW, PARITY_CROPS = 2, 64, 4
+PPOCR_IMAGES, PPOCR_BOXES = 8, 3  # bench.py:2041 (_build_ppocr's n_images, n_boxes)
+OCR_DET_BATCH, OCR_REC_BATCH, OCR_LABEL_LEN, OCR_HW = 8, 128, 10, 640
+YOLO_BATCH, YOLO_HW = 8, 640
+
+
+def slope_measure(run, steps, warm=3):
+    """A copy of bench.py's _slope_measure (bench.py:245-255): `run(n)` does n
+    iterations ending in a host fetch and returns (seconds, final value); the
+    time a step is the slope between a short and a long run, so the constant
+    fetch latency cancels."""
+    run(warm)
+    short = max(2, steps // 4)
+    t_short, _ = run(short)
+    t_long, final = run(steps)
+    return (t_long - t_short) / (steps - short), final
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def grad_dists(card: dict, cpu: dict) -> tuple:
+    """(worst relative L2 of a card grad against the CPU's, its name); a
+    grad whose CPU norm is below 1e-6 of the largest (0 by construction)
+    must be below that on the card too."""
+    scale = max(g.norm().item() for g in cpu.values())
+    worst = (0.0, "")
+    for n, g in cpu.items():
+        if g.norm().item() <= 1e-6 * scale:
+            if card[n].norm().item() > 1e-6 * scale:
+                raise AssertionError(f"{n}: a zero grad on the CPU is {card[n].norm().item()} on the card")
+        else:
+            worst = max(worst, (_rel(card[n], g), n))
+    return worst
+
+
+def hold(phase: str, dists: dict, tol: dict) -> None:
+    """Raise unless every (value, limit key) in `dists` is within `tol`."""
+    bad = {k: v for k, (v, key) in dists.items() if not v <= tol[key]}
+    if bad:
+        raise AssertionError(f"{phase}: card and CPU runs disagree: {bad} (limits {tol})")
+
+
+def no_kernel_launched(ta, phase: str) -> dict:
+    launches = dict(ta.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: a hand-written kernel launched: {launches}")
+    return launches
+
+
+def ocr_parity_run(ptt, det_state, rec_state, dev, data):
+    """The tiny DBNet and CRNN from one state on `dev`: DBNet's train maps,
+    db_loss and grads (the batch norms' momentum 0, so the buffers become the
+    batch's statistics), then the eval prob map of a second pair of pages;
+    CRNN's logits, CTC loss and grads; the CTC gradient of the logits from
+    the port's ctc_loss and from torch's."""
+    from paddle_tpu_torch.models import ocr
+
+    F = ptt.nn.functional
+    det, rec = ocr.DBNet(8, 32), ocr.CRNN(num_classes=11, hidden_size=32)
+    det.load_state_dict(det_state)
+    rec.load_state_dict(rec_state)
+    det.to(dev), rec.to(dev)
+    for m in det.modules():
+        if isinstance(m, ptt.nn.BatchNorm2D):
+            m._momentum = 0.0
+    d = {k: v.to(dev) for k, v in data.items()}
+    maps = det(d["page"])
+    loss = ocr.db_loss(maps, d["gt_prob"], d["gt_thresh"], prob_mask=d["mask"], thresh_mask=d["mask"])
+    loss.backward()
+    det.eval()
+    with torch.no_grad():
+        prob = det(d["page2"])
+    logits = rec(d["crops"])
+    lengths = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int64, device=dev)
+    ctc = F.ctc_loss(F.log_softmax(logits.transpose(0, 1), axis=-1), d["labels"], lengths,
+                     d["label_lengths"])
+    ctc.backward()
+    x = logits.detach().transpose(0, 1).contiguous()
+    ctc_grads = []
+    for fn in (F.ctc_loss, torch.nn.functional.ctc_loss):
+        leaf = x.clone().requires_grad_(True)
+        inp = leaf if fn is F.ctc_loss else torch.log_softmax(leaf, -1)
+        fn(inp, d["labels"], lengths, d["label_lengths"]).backward()
+        ctc_grads.append(leaf.grad.cpu())
+    return dict(maps=maps.detach().cpu(), loss=loss.item(), det_grads=grads_of(det),
+                prob=prob.cpu(), logits=logits.detach().cpu(), ctc=ctc.item(),
+                rec_grads=grads_of(rec), ctc_grads=ctc_grads)
+
+
+def ocr_parity(ptt):
+    """OCRSystem(DBNet(8, 32), CRNN(11, 32)) from one state on the card and
+    on the CPU (the state moved to both); the host postprocess and decode
+    of one numpy input, as a card tensor and as numpy."""
+    from paddle_tpu_torch.models import ocr
+
+    ptt.set_device("cpu")
+    ptt.seed(3)
+    det_state = ocr.DBNet(8, 32).state_dict()
+    rec_state = ocr.CRNN(num_classes=11, hidden_size=32).state_dict()
+    ptt.set_device("cuda")
+    rng = np.random.RandomState(4)
+    hw, n = PARITY_HW, PARITY_PAGES
+    data = {k: torch.from_numpy(v) for k, v in dict(
+        page=rng.rand(n, 3, hw, hw).astype(np.float32),
+        page2=rng.rand(n, 3, hw, hw).astype(np.float32),
+        gt_prob=(rng.rand(n, 1, hw, hw) > 0.8).astype(np.float32),
+        gt_thresh=(0.3 + 0.4 * rng.rand(n, 1, hw, hw)).astype(np.float32),
+        mask=(rng.rand(n, 1, hw, hw) > 0.1).astype(np.float32),
+        crops=rng.rand(PARITY_CROPS, 3, 32, 100).astype(np.float32),
+        labels=rng.randint(1, 11, (PARITY_CROPS, 5)).astype(np.int64),
+        label_lengths=np.array([5, 3, 4, 1][:PARITY_CROPS], np.int64)).items()}
+    card, cpu = (ocr_parity_run(ptt, det_state, rec_state, dev, data) for dev in ("cuda", "cpu"))
+    dists = dict(db_loss=(abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss"),
+                 ctc=(abs(card["ctc"] - cpu["ctc"]) / abs(cpu["ctc"]), "loss"),
+                 train_maps=(_rel(card["maps"], cpu["maps"]), "out"),
+                 eval_prob=(_rel(card["prob"], cpu["prob"]), "out"),
+                 logits=(_rel(card["logits"], cpu["logits"]), "out"),
+                 ctc_grad_vs_torch_on_card=(_rel(*card["ctc_grads"]), "grad"),
+                 ctc_grad_card_vs_cpu=(_rel(card["ctc_grads"][0], cpu["ctc_grads"][0]), "grad"))
+    worst_det, worst_rec = grad_dists(card["det_grads"], cpu["det_grads"]), \
+        grad_dists(card["rec_grads"], cpu["rec_grads"])
+    dists["det_grads"], dists["rec_grads"] = (worst_det[0], "grad"), (worst_rec[0], "grad")
+    if not all(torch.isfinite(g).all() for g in card["rec_grads"].values()):
+        raise AssertionError("ocr_parity: a CRNN grad through ctc_loss is not finite on the card")
+    hold("ocr_parity", dists, OCR_TOL)
+    # the host functions read a card tensor back: the same results as on numpy
+    pm = rng.rand(n, 1, hw, hw).astype(np.float32) ** 3
+    pm[0, 0, 5:12, 6:30], pm[1, 0, 20:35, 2:9] = 0.9, 0.7
+    on_card = ocr.db_postprocess(torch.from_numpy(pm).cuda())
+    on_host = ocr.db_postprocess(pm)
+    dec_card = ocr.ctc_greedy_decode(card["logits"].cuda())
+    dec_host = ocr.ctc_greedy_decode(card["logits"].numpy())
+    if not (all(np.array_equal(a, b) for a, b in zip(on_card, on_host)) and dec_card == dec_host):
+        raise AssertionError("ocr_parity: db_postprocess or ctc_greedy_decode differs on a card tensor")
+    log("ocr_parity", pages=[n, 3, hw, hw], crops=[PARITY_CROPS, 3, 32, 100], frames=24,
+        dists={k: v for k, (v, _) in dists.items()}, worst_det_grad=worst_det,
+        worst_rec_grad=worst_rec, losses_card=[card["loss"], card["ctc"]],
+        losses_cpu=[cpu["loss"], cpu["ctc"]], boxes=[len(b) for b in on_host], tol=OCR_TOL)
+
+
+def profile_calls(fns: dict, calls: int = 3, scopes=()) -> dict:
+    """Device time a call of each fn in `fns` (name -> fn), over `calls`
+    calls under torch.profiler: the busy time (the kernels' own), by torch
+    op, and the device time inside each record_function scope in `scopes`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy, by_op, in_scope = 0.0, {}, {}
+        for e in prof.key_averages():
+            ms = e.self_device_time_total / 1e3 / calls
+            if e.key.startswith("scope::"):
+                if e.device_type == torch.autograd.DeviceType.CPU:
+                    in_scope[e.key[7:]] = e.device_time_total / 1e3 / calls
+            elif e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += ms
+            elif ms > 0:
+                by_op[e.key] = ms
+        out[name] = dict(busy_ms=busy, scopes=in_scope, by_op=dict(
+            sorted(by_op.items(), key=lambda kv: -kv[1])[:10]))
+    return out
+
+
+def lstm_scope():
+    """A context in which every RNN time loop runs under the profiler scope
+    `scope::lstm` (its step ops' device time)."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.nn.layers import rnn
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = rnn.RNN.forward
+
+        def scoped(self, *a, **kw):
+            with record_function("scope::lstm"):
+                return orig(self, *a, **kw)
+
+        rnn.RNN.forward = scoped
+        try:
+            yield
+        finally:
+            rnn.RNN.forward = orig
+
+    return ctx()
+
+
+def sharpen_for_boxes(ptt, det, page):
+    """Untrained, DBNet's eval prob map is 0.5 everywhere (the batch norms'
+    buffers are their init's), and db_postprocess finds no box. For a run
+    that crops: the buffers set to one train pass's statistics over `page`
+    (momentum 0) and the prob branch's last transposed conv sharpened
+    (weight x10, bias 0.4), as tests/test_torch_ocr.py does at 64x64."""
+    bns = [m for m in det.modules() if isinstance(m, ptt.nn.BatchNorm2D)]
+    saved = [m._momentum for m in bns]
+    for m in bns:
+        m._momentum = 0.0
+    det.train()
+    with torch.no_grad():
+        det(page)
+        det.head.prob[6].weight.mul_(10.0)
+        det.head.prob[6].bias.fill_(0.4)
+    for m, mom in zip(bns, saved):
+        m._momentum = mom
+    det.eval()
+
+
+def ppocr_e2e(ptt, ta, state):
+    """bench.py:2041-2093 (_build_ppocr) as written, on the port: OCRSystem()
+    at its defaults (DBNet base 16 / neck 96, CRNN 37 classes / hidden 96),
+    eval, a seed-0 1x3x640x640 page and 3 crops of 3x32x100; det (forward +
+    db_postprocess) and rec (CRNN + ctc_greedy_decode) under to_static, each
+    timed by the bench's slope over 8 images. Then the device time a call by
+    op kind, the host postprocess, and OCRSystem.forward(page) end to end."""
+    from paddle_tpu_torch.models.ocr import OCRSystem, ctc_greedy_decode, db_postprocess
+
+    ptt.seed(0)
+    sys_ = OCRSystem()
+    sys_.eval()
+    rng = np.random.RandomState(0)
+    img = ptt.to_tensor(rng.rand(1, 3, 640, 640).astype(np.float32))
+    crops = ptt.to_tensor(rng.rand(PPOCR_BOXES, *sys_.rec_image_shape).astype(np.float32))
+    det_fwd = ptt.jit.to_static(lambda im: sys_.det(im))
+    rec_fwd = ptt.jit.to_static(lambda c: sys_.rec(c))
+
+    def det_once():
+        return db_postprocess(det_fwd(img))
+
+    def rec_once():
+        return ctc_greedy_decode(rec_fwd(crops))
+
+    def measure(fn, n_steps):
+        def run(n):
+            t0 = time.perf_counter()
+            out = None
+            for _ in range(n):
+                out = fn()  # both end host-side (numpy postprocess)
+            return time.perf_counter() - t0, out
+
+        return slope_measure(run, n_steps, warm=2)[0]
+
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    det_s = measure(det_once, PPOCR_IMAGES)
+    rec_s = measure(rec_once, PPOCR_IMAGES)
+    launches = no_kernel_launched(ta, "ppocr_e2e")
+    e2e = det_s + rec_s
+    rec_logits = rec_fwd(crops)
+    if tuple(rec_logits.shape) != (PPOCR_BOXES, 24, 37) or not torch.isfinite(rec_logits).all():
+        raise AssertionError(f"ppocr_e2e: rec logits {tuple(rec_logits.shape)} not finite/shaped")
+    with lstm_scope():
+        prof = profile_calls({"det": det_once, "rec": rec_once})
+    prob = det_fwd(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        db_postprocess(prob.detach().cpu().numpy())
+    post_ms = (time.perf_counter() - t0) * 1e3 / 5
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ctc_greedy_decode(rec_logits.detach().cpu().numpy())
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 5
+    split = {}
+    for name, wall in (("det", det_s * 1e3), ("rec", rec_s * 1e3)):
+        p = prof[name]
+        split[name] = dict(
+            wall_ms=wall, device_busy_ms=p["busy_ms"], device_idle_share=1.0 - p["busy_ms"] / wall,
+            cudnn_conv_ms=p["by_op"].get("aten::cudnn_convolution", 0.0),
+            transposed_conv_ms=p["by_op"].get("aten::cudnn_convolution_transpose", 0.0),
+            lstm_step_ops_ms=p["scopes"].get("lstm", 0.0), top_ops=p["by_op"])
+    split["det"]["postprocess_host_ms"] = post_ms
+    split["rec"]["decode_host_ms"] = decode_ms
+    # OCRSystem.forward end to end (host crop and resize included): at the
+    # defaults, then with a prob map that has boxes
+    full = {}
+    for case in ("defaults", "sharpened"):
+        if case == "sharpened":
+            sharpen_for_boxes(ptt, sys_.det, img)
+        sys_(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sys_(img)
+        full[case] = dict(ms=(time.perf_counter() - t0) * 1e3, boxes=len(res[0]),
+                          labels_sample=[lab for _, lab in res[0][:3]])
+    state["ppocr_launches"] = launches
+    log("ppocr_e2e", page=[1, 3, 640, 640], rec_boxes=PPOCR_BOXES, n_images=PPOCR_IMAGES,
+        det_ms_per_image=det_s * 1e3, rec_ms_per_batch=rec_s * 1e3, ms_per_image_e2e=e2e * 1e3,
+        images_per_sec=1.0 / e2e, params_m=sum(p.numel() for p in sys_.parameters()) / 1e6,
+        launches=launches)
+    log("ppocr_e2e profile", **split)
+    log("ppocr_e2e OCRSystem.forward", **full)
+    del sys_, det_fwd, rec_fwd
+    torch.cuda.empty_cache()
+
+
+def train_timed(step, steps):
+    """`steps` calls of `step` (-> loss, all-grads-finite flag, both on the
+    card): the first untimed, the rest timed to a synchronize; -> (ms a
+    step, losses, flags), read after the run."""
+    out = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [step() for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    return ms, [l.item() for l, _ in out], [bool(f) for _, f in out]
+
+
+def adam_step(model, opt, loss_fn):
+    """One step: loss, backward, a flag that every grad is finite (on the
+    card, read later), Adam, clear."""
+
+    def step():
+        loss = loss_fn()
+        loss.backward()
+        finite = torch.stack([torch.isfinite(p.grad).all() for p in model.parameters()]).all()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach(), finite
+
+    return step
+
+
+def ocr_train(ptt, ta, state, steps=5):
+    """Both OCR models at their default widths, 5 Adam (1e-3) steps each on
+    one seeded batch, per tensor (FLAGS_fused_optimizer off, its default): DBNet with db_loss at B8 3x640x640, CRNN with CTC at
+    B128 3x32x100 (24 frames, labels of 10 classes in 1..36). Every loss and
+    every grad finite (the CTC's too)."""
+    from paddle_tpu_torch.models.ocr import CRNN, DBNet, db_loss
+
+    F = ptt.nn.functional
+    rng = np.random.RandomState(0)
+    recs = {}
+    ptt.set_flags({"FLAGS_fused_optimizer": False})  # the default; earlier phases turn it on
+    ptt.seed(0)
+    b, hw = OCR_DET_BATCH, OCR_HW
+    imgs = ptt.to_tensor(rng.rand(b, 3, hw, hw).astype(np.float32))
+    gt_prob = ptt.to_tensor((rng.rand(b, 1, hw, hw) > 0.8).astype(np.float32))
+    gt_thresh = ptt.to_tensor((0.3 + 0.4 * rng.rand(b, 1, hw, hw)).astype(np.float32))
+    crops = ptt.to_tensor(rng.rand(OCR_REC_BATCH, 3, 32, 100).astype(np.float32))
+    labels = ptt.to_tensor(rng.randint(1, 37, (OCR_REC_BATCH, OCR_LABEL_LEN)).astype(np.int64))
+    lengths = ptt.to_tensor(np.full(OCR_REC_BATCH, 24, np.int64))
+    label_lengths = ptt.to_tensor(np.full(OCR_REC_BATCH, OCR_LABEL_LEN, np.int64))
+    for name in ("dbnet", "crnn"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = DBNet() if name == "dbnet" else CRNN()
+        opt = ptt.optimizer.Adam(1e-3, parameters=model.parameters())
+        if name == "dbnet":
+            loss_fn, batch = (lambda: db_loss(model(imgs), gt_prob, gt_thresh)), b
+        else:
+            loss_fn = lambda: F.ctc_loss(F.log_softmax(model(crops).transpose(0, 1), axis=-1),
+                                         labels, lengths, label_lengths)
+            batch = OCR_REC_BATCH
+        ta.reset_launch_counts()
+        ms, losses, finite = train_timed(adam_step(model, opt, loss_fn), steps)
+        launches = no_kernel_launched(ta, f"ocr_train {name}")
+        if not (all(math.isfinite(x) for x in losses) and all(finite)):
+            raise AssertionError(f"ocr_train {name}: losses {losses}, grads finite {finite}")
+        recs[name] = dict(batch=batch, ms_per_step=ms, images_per_sec=batch / (ms / 1e3),
+                          losses=losses, grads_finite=finite,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+                          launches=launches)
+        del model, opt
+    state["ocr_train_launches"] = recs["crnn"]["launches"]
+    log("ocr_train", steps=steps, dbnet_image=[3, hw, hw], crnn_image=[3, 32, 100],
+        label_len=OCR_LABEL_LEN, **recs)
+    torch.cuda.empty_cache()
+
+
+def yolo_targets(outs, seed=1) -> list:
+    """Dense targets per level on the outputs' device: one-hot-ish class
+    maps (10% ones), distances U(0, 1), 30% positive cells."""
+    rng = np.random.RandomState(seed)
+    dev = outs[0][0].device
+    targets = []
+    for cls, _ in outs:
+        b, c, h, w = cls.shape
+        t = dict(cls=(rng.rand(b, c, h, w) > 0.9), box=rng.rand(b, 4, h, w),
+                 mask=(rng.rand(b, 1, h, w) > 0.7))
+        targets.append({k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in t.items()})
+    return targets
+
+
+def yolo_parity_run(ptt, state_dict, dev, x):
+    """PPYOLOE(4, 8, 32) from one state on `dev`: train forward,
+    ppyoloe_loss and grads, then infer (eval) with its decode's output."""
+    from paddle_tpu_torch.models.detection import PPYOLOE, ppyoloe_loss
+
+    model = PPYOLOE(num_classes=4, base_channels=8, neck_channels=32)
+    model.load_state_dict(state_dict)
+    model.to(dev)
+    outs = model(x.to(dev))
+    loss = ppyoloe_loss(outs, yolo_targets(outs), 4)
+    loss.backward()
+    decoded = []
+    decode = model.decode
+    model.decode = lambda o: decoded.append(decode(o)) or decoded[-1]
+    rows = model.infer(x.to(dev))
+    (boxes, scores), = decoded
+    return dict(outs=torch.cat([torch.cat([c.flatten(), r.flatten()]) for c, r in outs]).detach().cpu(),
+                loss=loss.item(), grads=grads_of(model), boxes=boxes.cpu(), scores=scores.cpu(),
+                rows=rows)
+
+
+def nms_of(boxes, scores, score_thresh=0.4, iou_thresh=0.5, top_k=100):
+    """infer's filter and class-aware nms for one image, on its device."""
+    from paddle_tpu_torch.vision.ops import nms
+
+    conf, cls_id = scores.max(-1)
+    keep = conf >= score_thresh
+    return nms(boxes[keep], iou_thresh, scores=conf[keep], category_idxs=cls_id[keep],
+               top_k=top_k), int(keep.sum())
+
+
+def ppyoloe(ptt, ta, state, steps=5):
+    """PPYOLOE: the tiny model card against CPU; then PPYOLOE() at its
+    defaults (80 classes, base 32, neck 96): B1 640x640 inference at the
+    default thresholds (forward, decode and nms timed, nms's n and sweeps,
+    its indices against the CPU port's on the same boxes), and B8 640x640
+    training with ppyoloe_loss, 5 Adam steps."""
+    from paddle_tpu_torch.models.detection import PPYOLOE, ppyoloe_loss
+    from paddle_tpu_torch.vision import ops as vops
+
+    ptt.set_device("cpu")
+    ptt.seed(5)
+    tiny = PPYOLOE(num_classes=4, base_channels=8, neck_channels=32).state_dict()
+    ptt.set_device("cuda")
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 3, 64, 64).astype(np.float32))
+    card, cpu = (yolo_parity_run(ptt, tiny, dev, x) for dev in ("cuda", "cpu"))
+    worst = grad_dists(card["grads"], cpu["grads"])
+    dists = dict(loss=(abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss"),
+                 outputs=(_rel(card["outs"], cpu["outs"]), "out"),
+                 boxes=(_rel(card["boxes"], cpu["boxes"]), "out"),
+                 scores=(_rel(card["scores"], cpu["scores"]), "out"), grads=(worst[0], "grad"))
+    hold("ppyoloe parity", dists, OCR_TOL)
+    rows_equal = [a.shape == b.shape and np.array_equal(a[:, 5], b[:, 5])
+                  for a, b in zip(card["rows"], cpu["rows"])]
+    if not all(rows_equal):
+        raise AssertionError(f"ppyoloe parity: infer kept other boxes on the card: {rows_equal}")
+    parity = dict(dists={k: v for k, (v, _) in dists.items()}, worst_grad=worst,
+                  kept=[len(r) for r in card["rows"]])
+
+    # inference at full width, B1 640x640
+    gc.collect()
+    torch.cuda.empty_cache()
+    ptt.seed(0)
+    model = PPYOLOE()
+    model.eval()
+    img = ptt.to_tensor(np.random.RandomState(0).randn(1, 3, YOLO_HW, YOLO_HW).astype(np.float32))
+    ta.reset_launch_counts()
+    results = model.infer(img)  # the entry point, once (warm-up)
+    with torch.no_grad():
+        outs = model(img)
+        boxes, scores = model.decode(outs)
+        nms_of(boxes[0], scores[0])
+    timing = {}
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = model(img)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            boxes, scores = model.decode(outs)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            keep, n = nms_of(boxes[0], scores[0])
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            sweeps = vops.LAST_SWEEPS
+            timing = dict(forward_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
+                          nms_ms=(t3 - t2) * 1e3, nms_n=n, nms_sweeps=sweeps, kept=int(keep.numel()))
+        timing["infer_ms"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = model.infer(img)
+            timing["infer_ms"].append((time.perf_counter() - t0) * 1e3)
+    launches = no_kernel_launched(ta, "ppyoloe infer")
+    t0 = time.perf_counter()
+    keep_cpu, _ = nms_of(boxes[0].cpu(), scores[0].cpu())
+    timing["nms_cpu_port_ms"] = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(keep.cpu(), keep_cpu):
+        raise AssertionError("ppyoloe: the card's nms indices differ from the CPU port's")
+    if not (results[0].shape == (timing["kept"], 6) and np.isfinite(results[0]).all()):
+        raise AssertionError(f"ppyoloe: infer gave {results[0].shape}, expected {timing['kept']} rows")
+    del model, outs, boxes, scores
+
+    # training at full width, B8 640x640
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.set_flags({"FLAGS_fused_optimizer": False})
+    ptt.seed(0)
+    model = PPYOLOE()
+    opt = ptt.optimizer.Adam(1e-3, parameters=model.parameters())
+    imgs = ptt.to_tensor(np.random.RandomState(1).randn(YOLO_BATCH, 3, YOLO_HW, YOLO_HW)
+                         .astype(np.float32))
+    with torch.no_grad():
+        targets = yolo_targets(model(imgs))
+    ta.reset_launch_counts()
+    ms, losses, finite = train_timed(
+        adam_step(model, opt, lambda: ppyoloe_loss(model(imgs), targets, 80)), steps)
+    train_launches = no_kernel_launched(ta, "ppyoloe train")
+    if not (all(math.isfinite(v) for v in losses) and all(finite)):
+        raise AssertionError(f"ppyoloe train: losses {losses}, grads finite {finite}")
+    train = dict(batch=YOLO_BATCH, ms_per_step=ms, images_per_sec=YOLO_BATCH / (ms / 1e3),
+                 losses=losses, grads_finite=finite,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    state["ppyoloe_launches"] = {**launches, **train_launches}
+    log("ppyoloe", parity=parity, image=[3, YOLO_HW, YOLO_HW], classes=80,
+        params_m=sum(p.numel() for p in model.parameters()) / 1e6, infer_b1=timing,
+        nms_indices_equal_cpu_port=True, train=train, launches=launches)
+    del model, opt
+    torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2247,7 +2804,8 @@ def main(argv=None) -> int:
                                         "train_parity,train_bf16,train_recompute,"
                                         "train_fp16_scaler,train_o2_resume,amp_parity,"
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
-                                        "resnet_parity,resnet50_train",
+                                        "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
+                                        "ocr_train,ppyoloe",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -2433,6 +2991,14 @@ def main(argv=None) -> int:
         resnet_parity(ptt)
     if "resnet50_train" in phases:  # bench.py:1974-2006
         resnet50_train(ptt, ta, state)
+    if "ocr_parity" in phases:
+        ocr_parity(ptt)
+    if "ppocr_e2e" in phases:  # bench.py:2041-2093, BASELINE configs[2]
+        ppocr_e2e(ptt, ta, state)
+    if "ocr_train" in phases:
+        ocr_train(ptt, ta, state)
+    if "ppyoloe" in phases:  # BASELINE configs[3] on one card
+        ppyoloe(ptt, ta, state)
 
     k = "paddle_tpu_torch/ops/kernels/"
     sources = {
@@ -2450,7 +3016,10 @@ def main(argv=None) -> int:
                                      if k == "fused_adamw"},
                "train_o2_resume": state.get("o2_launches", {}),
                "fused_rms_norm": state.get("rms_norm_launches", {}),
-               **state.get("ernie_launches", {}), "resnet50_train": state.get("resnet_launches", {})}
+               **state.get("ernie_launches", {}), "resnet50_train": state.get("resnet_launches", {}),
+               "ppocr_e2e": state.get("ppocr_launches", {}),
+               "ocr_train": state.get("ocr_train_launches", {}),
+               "ppyoloe": state.get("ppyoloe_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():
@@ -2473,6 +3042,7 @@ def main(argv=None) -> int:
             bound_ms=rec.get("bound_ms"), bound_by=rec.get("bound_by"),
             library_ms=rec.get("library_ms"), variant=rec.get("variant", "cuda_core"),
             **({"by_shape": rec["by_shape"]} if "by_shape" in rec else {})))
+    print(f"device: {smi}", flush=True)  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

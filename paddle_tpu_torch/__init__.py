@@ -1,7 +1,7 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving, Llama
 training, ERNIE MLM pretraining and ResNet ImageNet training slices, with
 float16 AMP under a GradScaler, O2, recompute, param groups and
-checkpoints in the JAX package's format).
+checkpoints in the JAX package's format; PP-OCR det+rec and PP-YOLOE).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -49,6 +49,19 @@ The convs, batch norms, pools and the Momentum update are plain torch ops
     scaler.scale(loss).backward()
     scaler.step(opt)
     paddle.save({"model": model.state_dict(), "opt": opt.state_dict()}, path)
+
+    # PP-OCR det+rec: bench.py's _build_ppocr runs as written
+    sys_ = paddle.models.OCRSystem()          # DBNet + CRNN (BiLSTM, CTC)
+    results = sys_(page)                      # per image: (box, label ids)
+
+    # PP-YOLOE: forward, decode + class-aware nms, dense loss
+    det = paddle.models.PPYOLOE(num_classes=80)
+    rows = det.infer(images)
+    loss = paddle.models.ppyoloe_loss(det(images), targets, 80)
+
+Transposed convs, interpolate, the RNN cells, ctc_loss and nms are plain
+torch ops too (the JAX package leaves them to XLA); the box and label
+postprocess runs on the host, as there.
 """
 from . import (amp, distributed, framework, incubate, inference, jit, models, nn, ops, optimizer,
                quantization, regularizer, utils, vision)

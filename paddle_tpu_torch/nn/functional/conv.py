@@ -103,8 +103,54 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1, data
     return _conv(x, weight, bias, stride, padding, dilation, groups, 3, data_format)
 
 
-def _conv_transpose(*args, **kwargs):
-    raise NotImplementedError("conv*_transpose is not ported yet")
+_TORCH_CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d, 3: TF.conv_transpose3d}
 
 
-conv1d_transpose = conv2d_transpose = conv3d_transpose = _conv_transpose
+def _conv_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, n,
+                    data_format, output_size):
+    stride, dilation = _tuple(stride, n), _tuple(dilation, n)
+    pads = _padding(padding, n)
+    if isinstance(pads, str):
+        raise NotImplementedError("SAME/VALID string padding for conv_transpose")
+    x, weight, bias = amp_cast_inputs(f"conv{n}d_transpose", [x, weight, bias])
+    channels_first = data_format in _CHANNELS_FIRST
+    if not channels_first:
+        x = x.movedim(-1, 1)
+    k_eff = [d * (k - 1) + 1 for d, k in zip(dilation, weight.shape[2:])]
+    base = [(i - 1) * s - lo - hi + k for i, s, (lo, hi), k in zip(x.shape[2:], stride, pads, k_eff)]
+    if output_size is not None:
+        sizes = _tuple(output_size, n) if isinstance(output_size, int) else tuple(output_size)
+        opad = tuple(int(o) - b for o, b in zip(sizes, base))
+    else:
+        opad = _tuple(output_padding, n)
+    if any(not 0 <= op < s for op, s in zip(opad, stride)):
+        raise ValueError(f"output_padding {opad} (output_size {output_size}) outside [0, stride "
+                         f"{stride}): the forward conv of that output is not x's size")
+    w = weight.to(x.dtype)
+    if all(lo == hi for lo, hi in pads):
+        out = _TORCH_CONV_T[n](x, w, None, stride, [lo for lo, _ in pads], opad, groups, dilation)
+    else:
+        out = _TORCH_CONV_T[n](x, w, None, stride, 0, 0, groups, dilation)
+        out = TF.pad(out, [p for (lo, hi), op in zip(reversed(pads), reversed(opad))
+                           for p in (-lo, op - hi)])
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * n)
+    return out if channels_first else out.movedim(1, -1)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1,
+                     dilation=1, output_size=None, data_format="NCL", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, 1,
+                           data_format, output_size)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1,
+                     dilation=1, output_size=None, data_format="NCHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, 2,
+                           data_format, output_size)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1,
+                     dilation=1, output_size=None, data_format="NCDHW", name=None):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, 3,
+                           data_format, output_size)

@@ -16,3 +16,19 @@ class ReLU(Layer):
 class Tanh(Layer):
     def forward(self, x):
         return F.tanh(x)
+
+
+class Sigmoid(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.sigmoid(x)
+
+
+class Silu(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.silu(x)

@@ -3,8 +3,11 @@
 The weight is [out, in/groups, *kernel] in both packages (it crosses
 utils/convert.py as it is), drawn from Uniform(-k, k) with
 k = 1/sqrt(fan_in), fan_in = in/groups * prod(kernel); the bias is zeros
-(bias_attr=False: none). The transposed layers are not ported yet and
-raise.
+(bias_attr=False: none). The transposed layers' weight is [in,
+out/groups, *kernel] (torch's conv_transpose layout, and the JAX
+package's), drawn as the JAX package draws it: U(-k, k) with the same
+fan_in = in/groups * prod(kernel) (torch's own init differs); the bias
+zeros.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ def _ntuple(v, n):
 class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, n, stride=1, padding=0, dilation=1,
                  groups=1, padding_mode="zeros", weight_attr=None, bias_attr=None,
-                 data_format="NCHW"):
+                 data_format="NCHW", transposed=False, output_padding=0):
         super().__init__()
         if padding_mode != "zeros":
             raise NotImplementedError(f"padding_mode {padding_mode!r} is not ported (zeros only)")
@@ -34,13 +37,16 @@ class _ConvNd(Layer):
         self._kernel_size = _ntuple(kernel_size, n)
         self._stride = stride
         self._padding = padding
+        self._output_padding = output_padding
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
         k = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-        self.weight = self.create_parameter([out_channels, in_channels // groups, *self._kernel_size],
-                                            attr=weight_attr, default_initializer=Uniform(-k, k))
+        shape = ([in_channels, out_channels // groups] if transposed
+                 else [out_channels, in_channels // groups])
+        self.weight = self.create_parameter([*shape, *self._kernel_size], attr=weight_attr,
+                                            default_initializer=Uniform(-k, k))
         self.bias = self.create_parameter([out_channels], attr=bias_attr, is_bias=True,
                                           default_initializer=Constant(0.0))
 
@@ -77,18 +83,41 @@ class Conv3D(_ConvNd):
                          groups, padding_mode, weight_attr, bias_attr, data_format)
 
 
-class _ConvTranspose(Layer):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("transposed conv layers are not ported yet")
+_CONV_T = {1: F.conv1d_transpose, 2: F.conv2d_transpose, 3: F.conv3d_transpose}
 
 
-class Conv1DTranspose(_ConvTranspose):
-    pass
+class _ConvTransposeNd(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, n, stride, padding, output_padding,
+                 groups, dilation, weight_attr, bias_attr, data_format):
+        super().__init__(in_channels, out_channels, kernel_size, n, stride, padding, dilation,
+                         groups, "zeros", weight_attr, bias_attr, data_format, transposed=True,
+                         output_padding=output_padding)
+
+    def forward(self, x, output_size=None):
+        return _CONV_T[self._n](x, self.weight, self.bias, self._stride, self._padding,
+                                self._output_padding, self._groups, self._dilation, output_size,
+                                self._data_format)
 
 
-class Conv2DTranspose(_ConvTranspose):
-    pass
+class Conv1DTranspose(_ConvTransposeNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCL"):
+        super().__init__(in_channels, out_channels, kernel_size, 1, stride, padding,
+                         output_padding, groups, dilation, weight_attr, bias_attr, data_format)
 
 
-class Conv3DTranspose(_ConvTranspose):
-    pass
+class Conv2DTranspose(_ConvTransposeNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 2, stride, padding,
+                         output_padding, groups, dilation, weight_attr, bias_attr, data_format)
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format="NCDHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 3, stride, padding,
+                         output_padding, groups, dilation, weight_attr, bias_attr, data_format)

@@ -2,10 +2,12 @@
 
 paddle's Linear stores its weight [in, out] (paddle_tpu/nn/layers/common.py:16);
 the port's Linear stores torch's [out, in]. Linear weights (Llama's,
-ERNIE's and ResNet's `fc`, by the name of their layer) are transposed on
-the way across; embeddings ([vocab, hidden] in both), conv weights
-([out, in/groups, *kernel] in both), norm weights, biases and the batch
-norms' `_mean`/`_variance` buffers are not. Parameter and buffer names are
+ERNIE's, and ResNet's and CRNN's `fc`, by the name of their layer) are
+transposed on the way across; embeddings ([vocab, hidden] in both), conv
+weights ([out, in/groups, *kernel] in both; transposed convs' [in,
+out/groups, *kernel] in both), RNN cell weights ([gates * hidden, in] in
+both), norm weights, biases and the batch norms' `_mean`/`_variance`
+buffers are not. Parameter and buffer names are
 the same in both packages.
 """
 from __future__ import annotations

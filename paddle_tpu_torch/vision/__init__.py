@@ -1,5 +1,6 @@
-"""paddle.vision: the ResNet family (vision/models). The other models,
-datasets and transforms wait for later slices."""
-from . import models
+"""paddle.vision: the ResNet family (vision/models), box ops with nms
+(vision/ops) and the host-side resize (vision/transforms). The other
+models and datasets wait for later slices."""
+from . import models, ops, transforms
 
-__all__ = ["models"]
+__all__ = ["models", "ops", "transforms"]

@@ -18,7 +18,9 @@ from paddle_tpu import regularizer as jregularizer
 from paddle_tpu.vision import models as jmodels
 
 import paddle_tpu_torch as ptt
+from paddle_tpu_torch.models import detection as tdet
 from paddle_tpu_torch.models import ernie as ternie
+from paddle_tpu_torch.models import ocr as tocr
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.utils.convert import is_linear_weight, state_from_paddle_tpu, state_to_paddle_tpu
 from paddle_tpu_torch.vision import models as tmodels
@@ -163,8 +165,10 @@ def test_padding_forms_the_jax_package_refuses():
 
 def test_conv_layer_init_and_refusals():
     """Conv2D draws its weight from U(-k, k), k = 1/sqrt(in/groups * kh *
-    kw), its bias zeros; bias_attr=False gives none; the transposed convs,
-    return_mask and a padding mode other than zeros raise."""
+    kw), its bias zeros; bias_attr=False gives none. The transposed convs
+    draw their [in, out/groups, *k] weight from the JAX package's U(-k, k)
+    with the same fan_in = in/groups * prod(k) (not torch's init), their
+    bias zeros. return_mask and a padding mode other than zeros raise."""
     ptt.seed(0)
     conv = ptt.nn.Conv2D(64, 128, 3, groups=2)
     k = 1.0 / np.sqrt(32 * 9)
@@ -173,10 +177,19 @@ def test_conv_layer_init_and_refusals():
     assert abs(w.std().item() / (k / np.sqrt(3.0)) - 1.0) < 0.05
     assert torch.count_nonzero(conv.bias).item() == 0
     assert ptt.nn.Conv2D(3, 4, 1, bias_attr=False).bias is None
-    with pytest.raises(NotImplementedError):
-        ptt.nn.Conv2DTranspose(4, 4, 3)
-    with pytest.raises(NotImplementedError):
-        ptt.nn.functional.conv2d_transpose(torch.zeros(1, 4, 3, 3), torch.zeros(4, 4, 3, 3))
+    for layer, shape, fan_in in ((ptt.nn.Conv2DTranspose(64, 96, 3, groups=2), (64, 48, 3, 3), 32 * 9),
+                                 (ptt.nn.Conv1DTranspose(48, 64, 5), (48, 64, 5), 48 * 5),
+                                 (ptt.nn.Conv3DTranspose(32, 16, 2, stride=2), (32, 16, 2, 2, 2),
+                                  32 * 8)):
+        k = 1.0 / np.sqrt(fan_in)
+        w = layer.weight.detach()
+        assert tuple(w.shape) == shape and w.abs().max().item() <= k, type(layer).__name__
+        assert abs(w.std().item() / (k / np.sqrt(3.0)) - 1.0) < 0.05, type(layer).__name__
+        assert tuple(layer.bias.shape) == (shape[1] * layer._groups,)
+        assert torch.count_nonzero(layer.bias).item() == 0
+    assert ptt.nn.Conv2DTranspose(4, 4, 2, bias_attr=False).bias is None
+    up = ptt.nn.Conv2DTranspose(4, 6, 2, stride=2)
+    assert tuple(up(torch.zeros(1, 4, 3, 5)).shape) == (1, 6, 6, 10)
     with pytest.raises(NotImplementedError):
         ptt.nn.Conv2D(3, 4, 3, padding_mode="reflect")
     with pytest.raises(NotImplementedError):
@@ -561,15 +574,18 @@ def test_bench_build_resnet_step_runs_in_port(monkeypatch):
 
 
 def test_every_linear_weight_converts():
-    """Each nn.Linear of every ported model (Llama, ERNIE, ResNet) has a
-    weight name utils/convert transposes: a new model whose Linear names
-    the converter lacks fails here."""
+    """Each nn.Linear of every ported model (Llama, ERNIE, ResNet, CRNN) has
+    a weight name utils/convert transposes, and no other weight (conv,
+    transposed conv, LSTM, batch norm) does: a new model whose Linear names
+    the converter lacks, or whose other weights it would transpose, fails
+    here. PPYOLOE has no Linear: none of its weights is transposed."""
     ptt.seed(0)
     models = [tllama.llama_tiny(), ternie.ErnieForMaskedLM(ternie.ernie_tiny()),
-              tmodels.resnet18(num_classes=10)]
+              tmodels.resnet18(num_classes=10), tocr.CRNN(num_classes=11, hidden_size=32),
+              tocr.DBNet(8, 32), tdet.PPYOLOE(num_classes=4, base_channels=8, neck_channels=32)]
     for model in models:
-        linears = [n for n, m in model.named_modules() if isinstance(m, ptt.nn.Linear)]
-        assert linears, type(model).__name__
-        for name in linears:
-            assert is_linear_weight(f"{name}.weight"), (type(model).__name__, name)
+        linears = {f"{n}.weight" for n, m in model.named_modules() if isinstance(m, ptt.nn.Linear)}
+        assert bool(linears) == (type(model).__name__ not in ("DBNet", "PPYOLOE")), type(model)
+        for name, _ in model.named_parameters():
+            assert is_linear_weight(name) == (name in linears), (type(model).__name__, name)
     assert not is_linear_weight("conv1.weight") and not is_linear_weight("bn1.weight")
