@@ -91,6 +91,24 @@ Phases, one line each (any failure raises and exits non-zero):
                  forward, decode and nms ms, nms's n and sweeps, its indices
                  equal to the CPU port's on the same boxes; B8 640x640
                  training with ppyoloe_loss, 5 Adam steps
+  op_surface     every row of tests/torch_op_table.py (the CPU tests' parity
+                 table: 423 paddle ops and the inplace family) on the card
+                 against the port on the CPU, f32 and bf16, gradients for the
+                 float rows; random ops' determinism and moments on the card;
+                 the widened Tensor methods' torch forms against torch's, and
+                 the host microseconds a widened call adds
+  ernie_cls_parity a tiny ErnieForSequenceClassification on the card and on
+                 the CPU from one state: 2 fine-tune steps on padded batches
+                 (mask: the plain attention chain), AMP O1, fused AdamW under
+                 LinearWarmup through to_static, then the op-surface eval;
+                 ernie_parity's limits
+  ernie_finetune BASELINE configs[1]: ErnieForSequenceClassification(
+                 ernie_3_0_base(), 2 classes), dropout 0.1, B32 S128 padded
+                 batches with an attention_mask, AdamW 2e-5 under LinearWarmup,
+                 fused (B5), AMP O1 through to_static: 20 steps over 4 batches,
+                 an eval of 4 held-out batches through the op surface; ms/step,
+                 tokens/s, MFU, peak memory, a profiled split, exact launches;
+                 then 5 unpadded steps without a mask (B1-B3)
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -241,7 +259,12 @@ def ptxas_summary(nvcc_log: str) -> list:
     return out
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
+    """One line a phase; `elapsed_s` is the script's wall time at the line."""
+    fields["elapsed_s"] = round(time.perf_counter() - _T0, 1)
     print(f"{phase}: " + json.dumps(fields, default=float), flush=True)
 
 
@@ -540,7 +563,7 @@ def profile_decode(engine, ctx=1000, steps=8):
 
     pool = engine.pool
     pool.reset()
-    rows = [pool.alloc(pool.blocks_for_tokens(ctx + 2 * steps + 1)) for _ in range(8)]
+    rows = [pool.alloc(pool.blocks_for_tokens(ctx + 2 * steps + 2)) for _ in range(8)]
     step = lambda p: engine.decode([1] * 8, [p] * 8, [p + 1] * 8, rows)
     step(ctx)
     torch.cuda.synchronize()
@@ -553,6 +576,7 @@ def profile_decode(engine, ctx=1000, steps=8):
         for i in range(steps):
             step(ctx + 1 + steps + i)
         torch.cuda.synchronize()
+    calls = widened_calls(lambda: step(ctx + 1 + 2 * steps))
     pool.reset()
     kind = lambda n: ("paged_attn" if "paged_attn" in n else
                       "matmul" if any(t in n for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
@@ -561,7 +585,8 @@ def profile_decode(engine, ctx=1000, steps=8):
     return dict(context=ctx, batch=8, step_ms=step_ms,
                 device_ms_per_step={k: round(v, 4) for k, v in sorted(by_kind.items())},
                 device_busy_ms=busy if by_kind else None,
-                device_idle_share=(1.0 - busy / step_ms) if by_kind else None)
+                device_idle_share=(1.0 - busy / step_ms) if by_kind else None,
+                widened_calls_per_step=calls)
 
 
 def _union_us(spans) -> float:
@@ -2798,6 +2823,413 @@ def ppyoloe(ptt, ta, state, steps=5):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The paddle op surface (ops/{creation,math,manipulation,logic,search,linalg,
+# einsum,inplace}.py, methods in ops/_patch.py) and ERNIE sequence
+# classification, BASELINE.json configs[1] (PaddleNLP's fine-tune loop).
+# ---------------------------------------------------------------------------
+
+def _op_table():
+    """tests/torch_op_table.py (numpy and torch only) of this checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_op_table
+
+    return torch_op_table
+
+
+def _same(got, want, tol) -> str:
+    """'' when the card's `got` matches the CPU's `want`, else the difference."""
+    if not isinstance(want, torch.Tensor):
+        return "" if got == want else f"{got!r} != {want!r}"
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return f"{got.dtype}{tuple(got.shape)} != {want.dtype}{tuple(want.shape)}"
+    if not (want.is_floating_point() or want.is_complex()):
+        return "" if torch.equal(got, want) else "integer results differ"
+    g, w = got.to(torch.complex128 if want.is_complex() else torch.float64), \
+        want.to(torch.complex128 if want.is_complex() else torch.float64)
+    ok = torch.allclose(g, w, rtol=tol["rtol"], atol=tol["atol"], equal_nan=True)
+    return "" if ok else f"max |diff| {(g - w).abs().max().item():.3g}"
+
+
+def widened_calls(fn) -> dict:
+    """Calls of each widened Tensor method (ops/_patch.py WIDENED) while fn() runs."""
+    from paddle_tpu_torch.ops import _patch
+
+    counts, saved = dict.fromkeys(_patch.WIDENED, 0), {}
+    for name in _patch.WIDENED:
+        saved[name] = meth = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _m=meth, _n=name, **k):
+            counts[_n] += 1
+            return _m(self, *a, **k)
+
+        setattr(torch.Tensor, name, counted)
+    try:
+        fn()
+    finally:
+        for name, meth in saved.items():
+            setattr(torch.Tensor, name, meth)
+    return counts
+
+
+def op_surface(ptt):
+    """Every row of the parity table on the card against the port on the
+    CPU (f32; bf16 rows also in bf16; gradients for the float rows), the
+    random ops' determinism and moments on the card, the widened methods'
+    torch forms against the saved C methods, and the host microseconds a
+    widened method adds to a call."""
+    tab = _op_table()
+    from paddle_tpu_torch.ops import _patch
+
+    t0 = time.perf_counter()
+    bad, n_cases, n_grads = [], 0, 0
+    for row, bf16 in ([(r, False) for r in tab.ROWS + tab.INPLACE_ROWS]
+                      + [(r, True) for r in tab.ROWS if r.bf16]):
+        dtype = torch.bfloat16 if bf16 else None
+        tol = tab.TOL["bf16" if bf16 else row.tol]
+        gtol = tab.TOL["bf16_grad" if bf16 else row.tol + "_grad"]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            ptt.set_device(dev)
+            try:
+                res[dev] = tab.run_port(ptt, row, dev, dtype)
+            except Exception as e:  # noqa: BLE001 - every failing row is reported below
+                res[dev] = e
+        ptt.set_device("cuda")
+        n_cases += 1
+        label = row.id + ("-bf16" if bf16 else "")
+        if isinstance(res["cuda"], Exception) or isinstance(res["cpu"], Exception):
+            bad.append(f"{label}: raised {res['cuda']!r} / {res['cpu']!r}")
+            continue
+        (go, gg), (wo, wg) = res["cuda"], res["cpu"]
+        diffs = [_same(g, w, tol) for g, w in zip(go, wo)] + (
+            [] if len(go) == len(wo) else [f"{len(go)} outputs != {len(wo)}"])
+        if wg is not None:
+            n_grads += 1
+            diffs += [_same(g, w, gtol) for g, w in zip(gg, wg)
+                      if not (g is None and w is None)]
+        if any(diffs):
+            bad.append(f"{label}: {[d for d in diffs if d]}")
+    table_s = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"op_surface: {len(bad)} of {n_cases} rows differ between the card "
+                             f"and the CPU: {bad}")
+    # random ops on the card: the same draws after seed(), and their moments
+    n = 1 << 20
+    rand_rec = {}
+    for name, fn, mean, std in (
+            ("rand", lambda: ptt.rand([n]), 0.5, 12 ** -0.5),
+            ("randn", lambda: ptt.randn([n]), 0.0, 1.0),
+            ("normal", lambda: ptt.normal(1.0, 2.0, [n]), 1.0, 2.0),
+            ("randint", lambda: ptt.randint(0, 10, [n]), 4.5, (99 / 12) ** 0.5),
+            ("bernoulli", lambda: ptt.bernoulli(ptt.full([n], 0.3)), 0.3, 0.21 ** 0.5),
+            ("poisson", lambda: ptt.poisson(ptt.full([n], 4.0)), 4.0, 2.0),
+            ("standard_gamma", lambda: ptt.standard_gamma(ptt.full([n], 2.0)), 2.0, 2 ** 0.5),
+            ("multinomial", lambda: ptt.multinomial(ptt.to_tensor([0.1, 0.2, 0.7]), n, True),
+             1.6, 0.44 ** 0.5),
+            ("uniform_", lambda: ptt.uniform_(torch.empty(n, device="cuda"), -1.0, 3.0), 1.0,
+             4 * 12 ** -0.5)):
+        ptt.seed(7)
+        a = fn()
+        ptt.seed(7)
+        b = fn()
+        v = a.double()
+        m_err, s_err = abs(v.mean().item() - mean) / (std / n ** 0.5), abs(v.std().item() - std) / std
+        rand_rec[name] = dict(mean=v.mean().item(), std=v.std().item(), mean_err_in_se=m_err,
+                              std_rel_err=s_err)
+        if a.device.type != "cuda" or not torch.equal(a, b) or m_err > 5 or s_err > 0.01:
+            raise AssertionError(f"op_surface: random op {name} on the card: {rand_rec[name]}")
+    # the widened methods: torch's forms give the saved C methods' results on the card
+    x = torch.arange(24.0, device="cuda").reshape(2, 3, 4)
+    for name, args, kwargs in tab.TORCH_FORMS:
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+        kwargs = {k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+        got, want = getattr(x, name)(*args, **kwargs), _patch.TORCH_METHODS[name](x, *args, **kwargs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"op_surface: widened {name}{args} differs from torch's")
+    # host microseconds a call: the widened method against the saved C method
+    calls = 20000
+    forms = {"transpose": ((0, 1), {}), "unsqueeze": ((1,), {}),
+             "gather": ((2, torch.zeros(2, 3, 1, dtype=torch.int64, device="cuda")), {}),
+             "index_select": ((0, torch.tensor([1], device="cuda")), {}), "reshape": ((6, 4), {}),
+             "expand": ((5, 2, 3, 4), {}), "tile": ((2, 1, 1), {})}
+    host_us = {}
+    for name, (args, kwargs) in forms.items():
+        widened, saved = getattr(torch.Tensor, name), _patch.TORCH_METHODS[name]
+        per = {}
+        for label, meth in (("saved", saved), ("widened", widened), ("saved2", saved),
+                            ("widened2", widened)):
+            t1 = time.perf_counter()
+            for _ in range(calls):
+                meth(x, *args, **kwargs)
+            per[label] = (time.perf_counter() - t1) / calls * 1e6
+        torch.cuda.synchronize()
+        host_us[name] = dict(saved_us=min(per["saved"], per["saved2"]),
+                             widened_us=min(per["widened"], per["widened2"]),
+                             added_us=min(per["widened"], per["widened2"])
+                             - min(per["saved"], per["saved2"]))
+    log("op_surface", rows=n_cases, rows_with_grads=n_grads, table_s=table_s,
+        tol={k: v for k, v in tab.TOL.items()}, random=rand_rec,
+        torch_forms=len(tab.TORCH_FORMS), widened_host_us=host_us)
+
+
+CLS_BATCH, CLS_SEQ, CLS_STEPS, CLS_LR = 32, 128, 20, 2e-5  # PaddleNLP's ERNIE fine-tune lr
+
+
+def cls_batches(rng, n, batch, seq, vocab, padded=True):
+    """PaddleNLP-style classification batches: a [CLS] id 1 first, per-row
+    lengths in [seq / 4, seq] (padded) padded with id 0, and a random label
+    that tokens 1-8 spell out (id 2 or 3 against random ids from 4 up): a
+    separable task, so a fine-tune's loss falls within a few epochs."""
+    out = []
+    for _ in range(n):
+        lens = rng.randint(seq // 4, seq + 1, batch) if padded else np.full(batch, seq)
+        labels = rng.randint(0, 2, batch).astype(np.int64)
+        ids = rng.randint(4, vocab, (batch, seq)).astype(np.int64)
+        ids[:, 0] = 1
+        ids[:, 1:9] = 2 + labels[:, None]
+        ids[np.arange(seq)[None, :] >= lens[:, None]] = 0
+        out.append((ids, labels, int(lens.sum())))
+    return out
+
+
+def cls_finetune_step(ptt, model, opt, sched, keep_grads=False, level="O1"):
+    """One step of the fine-tune loop: to_static, AMP O1 bf16, the padding
+    mask when the batch holds padding, cross_entropy, AdamW, LinearWarmup."""
+
+    @ptt.jit.to_static
+    def step(ids, labels, masked=True):
+        with ptt.amp.auto_cast(level=level, dtype="bfloat16"):
+            logits = model(ids, attention_mask=(ids != 0).astype("int64") if masked else None)
+            loss = ptt.nn.functional.cross_entropy(logits, labels)
+        loss.backward()
+        grads = ({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                  if p.grad is not None} if keep_grads else None)
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss, grads
+
+    return step
+
+
+def cls_eval(ptt, model, batches):
+    """Eval through the op surface (argmax, equal, cast, sum, metric.Accuracy):
+    (accuracy, the metric's accuracy, the mean loss), without dropout."""
+    model.eval()
+    metric = ptt.metric.Accuracy()
+    correct = total = 0
+    loss = 0.0
+    with ptt.no_grad():
+        for ids, labels, _ in batches:
+            ids, labels = ptt.to_tensor(ids), ptt.to_tensor(labels)
+            logits = model(ids, attention_mask=ptt.cast(ids != 0, "int64"))
+            loss += float(ptt.nn.functional.cross_entropy(logits, labels)) / len(batches)
+            pred = ptt.argmax(logits, axis=-1)
+            correct += int(ptt.sum(ptt.cast(ptt.equal(pred, labels), "int64")))
+            total += int(labels.shape[0])
+            metric.update(metric.compute(logits, ptt.unsqueeze(labels, -1)))
+    model.train()
+    return correct / total, metric.accumulate(), loss
+
+
+def ernie_cls_parity(ptt, ta):
+    """A tiny ErnieForSequenceClassification (hidden 256, 4 heads of 64) on
+    the card and on the CPU from one state: 2 fine-tune steps at the
+    fine-tune lr (padded batches and a mask: the plain attention chain; the
+    fused AdamW, a bf16 moment2, the same stochastic-rounding seeds), then
+    the eval; ernie_parity's limits (params in units of that lr). A step-1
+    grad off by more than TRAIN_GRAD_REL passes only within the O1 noise
+    rule of resnet_parity: its distance from the CPU's f32 grad at most
+    RESNET_O1_NOISE_RATIO x the CPU O1 grad's own distance from it."""
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification, ErnieModel
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(3)
+    ref = ErnieForSequenceClassification(ErnieModel(**TINY_ERNIE), num_classes=2, dropout=0.0)
+    batches = cls_batches(np.random.RandomState(4), 3, 4, 64, TINY_ERNIE["vocab_size"])
+    runs = {}
+    for run, dev, level, n_steps in (("cuda", "cuda", "O1", 2), ("cpu", "cpu", "O1", 2),
+                                     ("cpu_f32", "cpu", "O0", 1)):
+        ptt.set_device(dev)
+        model = copy.deepcopy(ref).to(dev)
+        sched = ptt.optimizer.lr.LinearWarmup(CLS_LR, 1, 0.5 * CLS_LR, CLS_LR)
+        opt = ptt.optimizer.AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                                  moment2_dtype="bfloat16")
+        step = cls_finetune_step(ptt, model, opt, sched, keep_grads=True, level=level)
+        ptt.seed(11)  # the same stochastic-rounding seeds on both sides
+        ta.reset_launch_counts()
+        losses, grads = [], None
+        for ids, labels, _ in batches[:n_steps]:
+            loss, g = step(ptt.to_tensor(ids), ptt.to_tensor(labels))
+            losses.append(loss.item())
+            grads = grads or g
+        launches = {k: v for k, v in ta.LAUNCHES.items() if v}
+        acc = cls_eval(ptt, model, batches[2:])[:2]
+        runs[run] = dict(losses=losses, grads=grads, launches=launches, acc=acc,
+                         params={n: p.detach().float().cpu() for n, p in model.named_parameters()})
+    ptt.set_device("cuda")
+    card, cpu, f32 = runs["cuda"], runs["cpu"], runs["cpu_f32"]["grads"]
+    if card["launches"] != {"fused_adamw": 2} or cpu["launches"]:
+        raise AssertionError(f"ernie_cls_parity: launches card {card['launches']}, cpu "
+                             f"{cpu['launches']}; expected 2 fused_adamw (masked: no flash)")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    # a leaf whose true gradient is 0 (the key bias: a shift of every key by
+    # b moves one query's scores by the same q.b, which the softmax ignores)
+    # holds each device's rounding noise only (ernie_parity's rule)
+    def query_bias_norm(n):
+        layer = re.match(r".*\.layers\.\d+\.", n)
+        return cpu["grads"][layer.group(0) + "self_attn.q_proj.bias"].norm().item() if layer else None
+
+    ref_norm = {n: query_bias_norm(n) for n in cpu["grads"]}
+    zero_grad = sorted(n for n, g in cpu["grads"].items()
+                       if ref_norm[n] and g.norm().item() < ZERO_GRAD_NOISE * ref_norm[n])
+    zero_grad_noise = max((r["grads"][n].norm().item() / ref_norm[n] for r in (card, cpu)
+                           for n in zero_grad), default=0.0)
+    grad_rel, o1_noise = {}, {}
+    for n, g in cpu["grads"].items():
+        if n in zero_grad:
+            continue
+        grad_rel[n] = ((card["grads"][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        if grad_rel[n] > TRAIN_GRAD_REL:  # the card's distance from f32 against the CPU's own
+            o1_noise[n] = ((card["grads"][n] - f32[n]).norm()
+                           / (g - f32[n]).norm().clamp_min(1e-30)).item()
+    dp = torch.cat([(card["params"][n] - w).abs().reshape(-1) for n, w in cpu["params"].items()])
+    rec = dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_max_rel_err=loss_rel,
+               grad_max_rel_l2_err=max(grad_rel.values()), zero_grad_leaves=zero_grad,
+               zero_grad_over_query_bias=zero_grad_noise,
+               over_grad_rel_o1_noise_ratio=o1_noise,
+               param_max_abs_diff_over_lr=dp.max().item() / CLS_LR,
+               param_mean_abs_diff_over_lr=dp.mean().item() / CLS_LR,
+               eval_acc_card=card["acc"], eval_acc_cpu=cpu["acc"],
+               tol=dict(loss_rel=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL,
+                        o1_noise_ratio=RESNET_O1_NOISE_RATIO,
+                        zero_grad_over_query_bias=ZERO_GRAD_NOISE,
+                        param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                        param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR))
+    if not (loss_rel <= TRAIN_LOSS_RTOL
+            and all(v <= RESNET_O1_NOISE_RATIO for v in o1_noise.values())
+            and zero_grad_noise <= ZERO_GRAD_NOISE
+            and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+            and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR
+            and set(card["grads"]) == set(cpu["grads"])):
+        raise AssertionError(f"ernie_cls_parity: card and CPU runs disagree: {rec}")
+    log("ernie_cls_parity", layers=TINY_ERNIE["num_hidden_layers"],
+        hidden=TINY_ERNIE["hidden_size"], launches=card["launches"], steps=2,
+        padding_ids=int(sum((b[0] == 0).sum() for b in batches[:2])), **rec)
+
+
+def ernie_finetune(ptt, ta, state):
+    """BASELINE.json configs[1]: ErnieForSequenceClassification(ernie_3_0_base(),
+    num_classes=2), dropout 0.1, B32 S128 PaddleNLP-padded batches with an
+    attention_mask (the plain attention chain, as the JAX package takes it),
+    AdamW 2e-5 wd 0.01 under LinearWarmup (2 of 20 steps) with
+    FLAGS_fused_optimizer (B5), each step through to_static under AMP O1
+    bf16; 20 steps over 4 batches (5 epochs), an eval of 4 held-out batches;
+    then 5 steps on unpadded full-length batches without a mask (B1-B3).
+    The loss falls: its mean over the 4 training batches without dropout,
+    before the steps and after."""
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification, ernie_3_0_base
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.seed(0)
+    t0 = time.perf_counter()
+    model = ErnieForSequenceClassification(ernie_3_0_base(), num_classes=2, dropout=0.1)
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    sched = ptt.optimizer.lr.LinearWarmup(CLS_LR, 2, 0.0, CLS_LR)
+    opt = ptt.optimizer.AdamW(learning_rate=sched, parameters=model.parameters(),
+                              weight_decay=0.01)
+    step = cls_finetune_step(ptt, model, opt, sched)
+    rng = np.random.RandomState(0)
+    vocab = ERNIE_BASE["vocab_size"]
+    train, held_out = cls_batches(rng, 4, CLS_BATCH, CLS_SEQ, vocab), \
+        cls_batches(rng, 4, CLS_BATCH, CLS_SEQ, vocab)
+    data = [(ptt.to_tensor(i), ptt.to_tensor(y), n) for i, y, n in train]
+    _, _, train_loss0 = cls_eval(ptt, model, train)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    losses, per_step, real_tokens = [], [], 0
+    for i in range(CLS_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ids, labels, n = data[i % len(data)]
+        before = dict(ta.LAUNCHES)
+        losses.append(step(ids, labels)[0])
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+        real_tokens += n if i else 0
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (CLS_STEPS - 1)
+    launches = {k: v for k, v in ta.LAUNCHES.items() if v}
+    losses = [x.item() for x in losses]
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0, "fused_adamw": 1}
+    if any(d != want for d in per_step):
+        raise AssertionError(f"ernie_finetune: launches per step {per_step} != {want}")
+    epochs = [sum(losses[i:i + 4]) / 4 for i in range(0, CLS_STEPS, 4)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    acc, metric_acc, eval_loss = cls_eval(ptt, model, held_out)
+    train_acc, _, train_loss = cls_eval(ptt, model, train)
+    # the loss over the 4 training batches without dropout, before and after
+    if not (all(math.isfinite(x) for x in losses) and train_loss < train_loss0):
+        raise AssertionError(f"ernie_finetune: losses not finite and falling: {losses}, "
+                             f"train loss {train_loss0} -> {train_loss}")
+    if acc != metric_acc:
+        raise AssertionError(f"ernie_finetune: eval accuracy {acc} != metric.Accuracy {metric_acc}")
+    emb = model.ernie.embeddings
+    n_params = sum(p.numel() for p in model.parameters())
+    n_emb = sum(e.weight.numel() for e in (emb.word_embeddings, emb.position_embeddings,
+                                            emb.token_type_embeddings))
+    # bench.py:407-416's count with every embedding a lookup (no tied decoder here)
+    flops_per_token = (6 * (n_params - n_emb)
+                       + 12 * CLS_SEQ * ERNIE_BASE["hidden_size"] * ERNIE_BASE["num_hidden_layers"])
+    tokens_per_sec = CLS_BATCH * CLS_SEQ / (step_ms / 1e3)
+    calls = widened_calls(lambda: step(*data[0][:2]))
+    prof = profile_train(lambda: step(*data[1][:2]), step_ms)
+    state.setdefault("ernie_launches", {})["ernie_finetune"] = launches
+    log("ernie_finetune", batch=CLS_BATCH, seq=CLS_SEQ, steps=CLS_STEPS, lr=CLS_LR,
+        params_m=n_params / 1e6, init_s=init_s, losses=losses, loss_by_epoch=epochs,
+        ms_per_step=step_ms, tokens_per_sec_padded=tokens_per_sec,
+        tokens_per_sec_real=real_tokens / ((CLS_STEPS - 1) * step_ms / 1e3),
+        real_token_share=sum(n for _, _, n in train) / (len(train) * CLS_BATCH * CLS_SEQ),
+        flops_per_token=flops_per_token,
+        mfu=tokens_per_sec * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+        step_ms_at_peak=CLS_BATCH * CLS_SEQ * flops_per_token / PEAK_FLOPS[torch.bfloat16] * 1e3,
+        peak_mem_gb=peak, train_loss_before=train_loss0, train_loss_after=train_loss,
+        train_acc=train_acc, eval_loss=eval_loss, eval_acc=acc, eval_metric_acc=metric_acc,
+        launches=launches, launches_per_step=per_step[0], widened_calls_per_step=calls)
+    log("ernie_finetune profile", **prof)
+    # unpadded full-length batches, no mask: the flash kernels (B1-B3)
+    full = [(ptt.to_tensor(i), ptt.to_tensor(y)) for i, y, _ in
+            cls_batches(rng, 5, CLS_BATCH, CLS_SEQ, vocab, padded=False)]
+    ta.reset_launch_counts()
+    per_step, ulosses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, labels in full:
+        before = dict(ta.LAUNCHES)
+        ulosses.append(step(ids, labels, masked=False)[0])
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+    torch.cuda.synchronize()
+    u_ms = (time.perf_counter() - t0) * 1e3 / len(full)
+    ulaunches = {k: v for k, v in ta.LAUNCHES.items() if v}
+    ulosses = [x.item() for x in ulosses]
+    if any(d != ERNIE_PER_STEP for d in per_step) or not all(math.isfinite(x) for x in ulosses):
+        raise AssertionError(f"ernie_finetune unpadded: launches per step {per_step} != "
+                             f"{ERNIE_PER_STEP}, or losses {ulosses} not finite")
+    state.setdefault("ernie_launches", {})["ernie_finetune_unpadded"] = ulaunches
+    log("ernie_finetune unpadded", steps=len(full), losses=ulosses, ms_per_step=u_ms,
+        tokens_per_sec=CLS_BATCH * CLS_SEQ / (u_ms / 1e3),
+        mfu=CLS_BATCH * CLS_SEQ / (u_ms / 1e3) * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+        launches=ulaunches, launches_per_step=per_step[0])
+    ptt.set_flags({"FLAGS_fused_optimizer": False})
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
@@ -2805,7 +3237,8 @@ def main(argv=None) -> int:
                                         "train_fp16_scaler,train_o2_resume,amp_parity,"
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
-                                        "ocr_train,ppyoloe",
+                                        "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
+                                        "ernie_finetune",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -2999,6 +3432,12 @@ def main(argv=None) -> int:
         ocr_train(ptt, ta, state)
     if "ppyoloe" in phases:  # BASELINE configs[3] on one card
         ppyoloe(ptt, ta, state)
+    if "op_surface" in phases:
+        op_surface(ptt)
+    if "ernie_cls_parity" in phases:
+        ernie_cls_parity(ptt, ta)
+    if "ernie_finetune" in phases:  # BASELINE configs[1]
+        ernie_finetune(ptt, ta, state)
 
     k = "paddle_tpu_torch/ops/kernels/"
     sources = {

@@ -1,7 +1,8 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu (serving, Llama
 training, ERNIE MLM pretraining and ResNet ImageNet training slices, with
 float16 AMP under a GradScaler, O2, recompute, param groups and
-checkpoints in the JAX package's format; PP-OCR det+rec and PP-YOLOE).
+checkpoints in the JAX package's format; PP-OCR det+rec and PP-YOLOE;
+the paddle Tensor and op surface, and ERNIE sequence classification).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -62,18 +63,62 @@ The convs, batch norms, pools and the Momentum update are plain torch ops
 Transposed convs, interpolate, the RNN cells, ctc_loss and nms are plain
 torch ops too (the JAX package leaves them to XLA); the box and label
 postprocess runs on the host, as there.
+
+    # the op surface: Tensor is torch.Tensor, with paddle's methods attached
+    x = paddle.to_tensor([[1.0, 2.0]], stop_gradient=False)
+    y = paddle.concat([x, x], axis=0).transpose([1, 0]).astype("float32")
+    (g,) = paddle.grad(paddle.sum(y * y), x)
+    pred = paddle.argmax(model(ids, attention_mask=(ids != 0).astype("int64")), axis=-1)
+
+The ops are plain torch ops (ops/{creation,math,manipulation,logic,search,
+linalg,einsum,inplace}.py); ops/_patch.py says which Tensor methods are
+paddle's and which stay torch's.
 """
-from . import (amp, distributed, framework, incubate, inference, jit, models, nn, ops, optimizer,
-               quantization, regularizer, utils, vision)
+import torch
+
+from . import (amp, core, distributed, framework, incubate, inference, jit, models, nn, ops,
+               optimizer, quantization, regularizer, utils, vision)
+from .core import autograd_engine as _autograd_engine
 from .framework.device import get_device, set_device
 from .framework.dtype import get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
 from .framework.io import load, save
 from .framework.random import seed
-from .ops.creation import to_tensor
-from .ops.manipulation import flatten
 
-__all__ = ["amp", "distributed", "framework", "incubate", "inference", "jit", "models", "nn", "ops", "optimizer",
-           "quantization", "regularizer", "utils", "vision", "get_device", "set_device",
-           "get_default_dtype", "set_default_dtype", "get_flags", "set_flags", "seed", "to_tensor",
-           "flatten", "save", "load"]
+_autograd_engine.install()
+
+# ---- the paddle Tensor and op surface (ops/*.py; methods in ops/_patch.py) ----
+from .core.tensor import Tensor, set_printoptions  # noqa: E402
+from .ops.creation import *  # noqa: F401,F403,E402
+from .ops.math import *  # noqa: F401,F403,E402
+from .ops.manipulation import *  # noqa: F401,F403,E402
+from .ops.logic import *  # noqa: F401,F403,E402
+from .ops.search import *  # noqa: F401,F403,E402
+from .ops.linalg import (bmm, cdist, cholesky, cholesky_solve, corrcoef, cov, dist,  # noqa: E402
+                         inverse, matmul, mm, mv, norm)
+from .ops.einsum import einsum  # noqa: E402
+from .ops.inplace import *  # noqa: F401,F403,E402
+from . import autograd, linalg, metric  # noqa: E402
+from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,  # noqa: E402
+                       set_grad_enabled)
+
+bool = torch.bool  # noqa: A001  (paddle.bool)
+(uint8, int8, int16, int32, int64, float16, bfloat16, float32, float64, complex64,
+ complex128) = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64, torch.float16,
+                torch.bfloat16, torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
+def in_dynamic_mode():
+    return True
+
+
+def disable_static(place=None):
+    """Dygraph is the only mode; kept for paddle's callers."""
+
+
+def enable_static():
+    """The static-graph slice is not ported: the port stays in dygraph."""
+
+
+def is_compiled_with_cuda():
+    return torch.cuda.is_available()

@@ -1,5 +1,5 @@
-"""ERNIE-3.0 / BERT-style encoder with the MLM pretraining head
-(counterpart of paddle_tpu/models/ernie.py:19-133).
+"""ERNIE-3.0 / BERT-style encoder with the MLM pretraining head and the
+sequence classifier (counterpart of paddle_tpu/models/ernie.py:19-163).
 
 Learned position and token-type embeddings, a post-LN transformer
 encoder (nn.TransformerEncoder: the flash kernels on the card), a pooler
@@ -107,8 +107,33 @@ class ErnieForMaskedLM(nn.Layer):
         return F.linear(h, E.t()) + self.decoder_bias
 
 
+class ErnieForSequenceClassification(nn.Layer):
+    """The pooled [CLS] state, dropout, then a Linear to `num_classes`
+    logits (PaddleNLP's fine-tuning head). With an `attention_mask`
+    (1 attend, 0 padding) attention takes the plain chain, as in the JAX
+    package."""
+
+    def __init__(self, ernie: ErnieModel = None, num_classes=2, dropout=0.1, **config):
+        super().__init__()
+        self.ernie = ernie or ErnieModel(**config)
+        hidden = self.ernie.pooler.dense.in_features
+        self.dropout = nn.Dropout(dropout)
+        self.classifier = nn.Linear(hidden, num_classes, weight_attr=self.ernie._init_attr)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None, attention_mask=None):
+        _, pooled = self.ernie(input_ids, token_type_ids, position_ids, attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
 def ernie_3_0_base(**kw):
     cfg = dict(vocab_size=40000, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+               intermediate_size=3072)
+    cfg.update(kw)
+    return ErnieModel(**cfg)
+
+
+def ernie_3_0_medium(**kw):
+    cfg = dict(vocab_size=40000, hidden_size=768, num_hidden_layers=6, num_attention_heads=12,
                intermediate_size=3072)
     cfg.update(kw)
     return ErnieModel(**cfg)

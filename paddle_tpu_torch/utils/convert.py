@@ -2,7 +2,7 @@
 
 paddle's Linear stores its weight [in, out] (paddle_tpu/nn/layers/common.py:16);
 the port's Linear stores torch's [out, in]. Linear weights (Llama's,
-ERNIE's, and ResNet's and CRNN's `fc`, by the name of their layer) are
+ERNIE's (`classifier` included), and ResNet's and CRNN's `fc`, by the name of their layer) are
 transposed on the way across; embeddings ([vocab, hidden] in both), conv
 weights ([out, in/groups, *kernel] in both; transposed convs' [in,
 out/groups, *kernel] in both), RNN cell weights ([gates * hidden, in] in
@@ -21,7 +21,7 @@ import torch
 from ..framework.io import numpy_to_tensor, tensor_to_numpy
 
 _LINEAR_WEIGHT = re.compile(r"(^|\.)(q_proj|k_proj|v_proj|o_proj|out_proj|gate_proj|up_proj|down_proj"
-                            r"|lm_head|linear1|linear2|dense|transform|fc)\.weight$")
+                            r"|lm_head|linear1|linear2|dense|transform|fc|classifier)\.weight$")
 
 
 def is_linear_weight(name: str) -> bool:

@@ -1,0 +1,19 @@
+"""Port parity of the linalg, search and einsum ops (paddle_tpu_torch/ops/): every row
+of tests/torch_op_table.py whose op lives there, the port on the CPU
+against the JAX package on the same numpy inputs, f32 and (bf16 rows)
+bfloat16, with gradients for the float rows."""
+import pytest
+
+import paddle_tpu_torch as ptt
+
+from torch_op_parity import check_row
+from torch_op_table import ROWS, resolve
+
+_MODULES = ("paddle_tpu_torch.ops.linalg", "paddle_tpu_torch.ops.search", "paddle_tpu_torch.ops.einsum")
+CASES = [(r, False) for r in ROWS if resolve(ptt, r.name).__module__ in _MODULES]
+CASES += [(r, True) for r, _ in list(CASES) if r.bf16]
+
+
+@pytest.mark.parametrize("row,bf16", CASES, ids=[r.id + ("-bf16" if b else "") for r, b in CASES])
+def test_op_matches_jax(row, bf16):
+    check_row(row, bf16)

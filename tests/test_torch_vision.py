@@ -574,13 +574,15 @@ def test_bench_build_resnet_step_runs_in_port(monkeypatch):
 
 
 def test_every_linear_weight_converts():
-    """Each nn.Linear of every ported model (Llama, ERNIE, ResNet, CRNN) has
+    """Each nn.Linear of every ported model (Llama, ERNIE MLM and classifier,
+    ResNet, CRNN) has
     a weight name utils/convert transposes, and no other weight (conv,
     transposed conv, LSTM, batch norm) does: a new model whose Linear names
     the converter lacks, or whose other weights it would transpose, fails
     here. PPYOLOE has no Linear: none of its weights is transposed."""
     ptt.seed(0)
     models = [tllama.llama_tiny(), ternie.ErnieForMaskedLM(ternie.ernie_tiny()),
+              ternie.ErnieForSequenceClassification(ternie.ernie_tiny(), num_classes=3),
               tmodels.resnet18(num_classes=10), tocr.CRNN(num_classes=11, hidden_size=32),
               tocr.DBNet(8, 32), tdet.PPYOLOE(num_classes=4, base_channels=8, neck_channels=32)]
     for model in models:
