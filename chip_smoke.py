@@ -109,6 +109,29 @@ Phases, one line each (any failure raises and exits non-zero):
                  an eval of 4 held-out batches through the op surface; ms/step,
                  tokens/s, MFU, peak memory, a profiled split, exact launches;
                  then 5 unpadded steps without a mask (B1-B3)
+  nn_surface     every row of tests/torch_nn_table.py (the nn functionals:
+                 activations, common, losses, norms, pools, attention) on the
+                 card against the port on the CPU, f32 and bf16, gradients for
+                 the float rows; the random layers and functionals drawn again
+                 equal after seed() on the card, with their moments
+  transformer_parity a tiny nn.Transformer seq2seq (d_model 32, 4 heads, 2+2
+                 layers, FFN 64, dropout 0; tests/torch_seq2seq.py) from one
+                 set of weights on the card and on the CPU: 2 fused-Adam steps
+                 of the label-smoothed loss in AMP O1 bf16 (ernie_parity's
+                 limits; each grad also within 1.5x the CPU's own O1-vs-f32
+                 distance), then greedy and beam-4 decoding in f32: ids equal
+  transformer_base Transformer-base (Vaswani et al. 2017, Table 3 "base": d_model
+                 512, 8 heads, 6+6 layers, FFN 2048, dropout 0.1, post-LN) with
+                 one 37000 x 512 embedding shared by source, target and the
+                 output projection (~63M params), PaddleNLP's recipe: label
+                 smoothing 0.1, Adam(0.9, 0.98, 1e-9) under NoamDecay(512,
+                 4000, 2.0), fused (B5), AMP O1 bf16; B64, source and target 64,
+                 a copy task from seed 0: 10 steps, the eval loss before and
+                 after; ms/step, target tokens/s, MFU, peak memory, a profiled
+                 split; then beam-4 decoding of 8 sources for up to 114 steps
+                 with the decoder's caches (B1 at Sq 1 against the cache);
+                 launches of B1-B3 and B5 split into training and decoding,
+                 and B1 at the decode shapes against its plain version
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -127,6 +150,7 @@ Then a {"kernels": [...]} line (with a row for each float16 flash kernel) and, l
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import json
@@ -1688,7 +1712,9 @@ def amp_parity_run(ptt, cfg, ref_state, dev, ids, case):
 
     ptt.set_flags({"FLAGS_fused_optimizer": True})
     model = LlamaForCausalLM(**cfg, recompute=case == "recompute_micro2", device="meta")
-    model.load_state_dict({k: t.to(dev) for k, t in ref_state.items()}, assign=True)
+    # a copy on either device: assigned as they are, the CPU run would train
+    # `ref_state` itself, and the next case would start from its weights
+    model.load_state_dict({k: t.to(dev, copy=True) for k, t in ref_state.items()}, assign=True)
     opt = ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
                               moment2_dtype="bfloat16")
     scaler = ptt.amp.GradScaler(init_loss_scaling=2.0 ** 15) if case == "o1_fp16" else None
@@ -2015,18 +2041,66 @@ RESNET_F32_TOL = dict(loss=1e-5, grad=2e-3, change=1e-2)
 RESNET_O1_LOSS = (5e-3, 2e-2)  # of the step-1 loss, at steps 1 and 2
 RESNET_O1_NOISE_RATIO = 1.5
 RESNET_BATCH = 64  # bench.py:1978 (BENCH_RESNET_BATCH's default)
+# A ReLU input within f32 rounding of 0 may take either side on two
+# devices, and two inputs of a max-pool window within rounding of each
+# other either argmax; at B4 64x64 (16-64 values a BN channel in layer3-4)
+# one such flip moves a BN channel's grads by percents: on the CPU alone,
+# f32 against f64, 2 ReLU flips (inputs 1.7e-9 and 5e-7 of their tensor's
+# rms) put resnet18's layer3.0.bn1.bias grad 3.0e-2 apart. So an f32 CPU
+# run takes the card's decisions, and the two devices may decide
+# differently only within DECISION_TIE of the input's rms.
+DECISION_TIE = 1e-4
 
 
-def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels):
+def kink_decisions(model, decisions, force):
+    """Forward hooks on every ReLU and MaxPool2D of `model`: record each
+    call's decision (ReLU: input > 0; max pool: each window's argmax) into
+    `decisions`, or (force) apply the recorded ones in order. -> (the
+    hooks, a dict of the forced run's disagreements: their count and the
+    largest gap over the input's rms: |input| at a ReLU, the difference of
+    the two choices at a pool)."""
+    from paddle_tpu_torch import nn
+
+    calls = iter(decisions)
+    seen = dict(disagree=0, worst_over_rms=0.0)
+    pick = lambda t, idx: t.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    def hook(mod, inp, out):
+        x = inp[0].detach()
+        relu = isinstance(mod, nn.ReLU)
+        mine = x > 0 if relu else torch.nn.functional.max_pool2d(
+            x, mod.kernel_size, mod.stride or mod.kernel_size, mod.padding,
+            ceil_mode=mod.kwargs.get("ceil_mode", False), return_indices=True)[1]
+        if not force:
+            decisions.append(mine.cpu())
+            return None
+        theirs = next(calls).to(x.device)
+        diff = theirs != mine
+        if bool(diff.any()):
+            seen["disagree"] += int(diff.sum())
+            gap = x.abs() if relu else (pick(x, theirs) - pick(x, mine)).abs()
+            worst = (gap[diff].max() / x.float().pow(2).mean().sqrt()).item()
+            seen["worst_over_rms"] = max(seen["worst_over_rms"], worst)
+        return inp[0] * theirs.to(inp[0].dtype) if relu else pick(inp[0], theirs)
+
+    hooks = [mod.register_forward_hook(hook) for mod in model.modules()
+             if isinstance(mod, (nn.ReLU, nn.MaxPool2D))]
+    return hooks, seen
+
+
+def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels, masks=None, force=False):
     """resnet18(num_classes=10) on `dev` from `ref_state`: 2 steps through
     to_static (AMP O1 bf16 or f32) of Momentum(PiecewiseDecay([1], [0.01,
     0.005]) stepped each step, momentum 0.9, L2Decay(1e-4)). Returns the
-    losses, the step-1 grads and the state before and after (CPU f32)."""
+    losses, the step-1 grads and the state before and after (CPU f32);
+    with `masks`, the ReLU and max-pool decisions recorded into it or
+    (force) taken from it (kink_decisions)."""
     from paddle_tpu_torch.vision.models import resnet18
 
     model = resnet18(num_classes=10)
     model.load_state_dict(ref_state)
     model.to(dev)
+    hooks, seen = kink_decisions(model, masks, force) if masks is not None else ([], None)
     sched = ptt.optimizer.lr.PiecewiseDecay([1], [0.01, 0.005])
     opt = ptt.optimizer.Momentum(sched, momentum=0.9, parameters=model.parameters(),
                                  weight_decay=ptt.regularizer.L2Decay(1e-4))
@@ -2049,7 +2123,10 @@ def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels):
     sched.step()
     loss2, _ = step(x, y)
     sched.step()
-    return dict(losses=[loss1.item(), loss2.item()], grads=grads, before=before, after=state())
+    for h in hooks:
+        h.remove()
+    return dict(losses=[loss1.item(), loss2.item()], grads=grads, before=before, after=state(),
+                decisions=seen)
 
 
 def _rel(a, b) -> float:
@@ -2078,11 +2155,16 @@ def resnet_parity(ptt):
     imgs = torch.from_numpy(rng.randn(RESNET_PARITY_BATCH, 3, RESNET_PARITY_HW,
                                       RESNET_PARITY_HW).astype(np.float32))
     labels = torch.from_numpy(rng.randint(0, 10, (RESNET_PARITY_BATCH,)).astype(np.int64))
+    masks = []
     runs = {(dev, amp): resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels)
+            if amp or dev == "cpu" else
+            resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels, masks=masks)
             for amp in (False, True) for dev in ("cuda", "cpu")}
+    # the f32 CPU run again, with the card's ReLU and max-pool decisions
+    tied = resnet_parity_run(ptt, ref_state, "cpu", False, imgs, labels, masks=masks, force=True)
     rec = {}
     for amp in (False, True):
-        card, cpu = runs[("cuda", amp)], runs[("cpu", amp)]
+        card, cpu = runs[("cuda", amp)], runs[("cpu", amp)] if amp else tied
         loss_err = [abs(a - b) / cpu["losses"][0] for a, b in zip(card["losses"], cpu["losses"])]
         dist = resnet_dists(card, cpu)
         buffers_moved = all(not torch.equal(r["after"][n], r["before"][n]) for r in (card, cpu)
@@ -2091,11 +2173,19 @@ def resnet_parity(ptt):
             tol = RESNET_F32_TOL
             worst_grad = max((g, n) for n, (g, _) in dist.items())
             worst_change = max((c, n) for n, (_, c) in dist.items())
+            untied = resnet_dists(card, runs[("cpu", False)])
             ok = (max(loss_err) <= tol["loss"] and worst_grad[0] <= tol["grad"]
-                  and worst_change[0] <= tol["change"])
+                  and worst_change[0] <= tol["change"]
+                  and tied["decisions"]["worst_over_rms"] <= DECISION_TIE)
             rec["f32"] = dict(losses_card=card["losses"], losses_cpu=cpu["losses"],
                               loss_err=loss_err, worst_grad=worst_grad,
-                              worst_change=worst_change, buffers_moved=buffers_moved, tol=tol)
+                              worst_change=worst_change, buffers_moved=buffers_moved,
+                              decision_calls=len(masks),
+                              decisions_disagree=tied["decisions"]["disagree"],
+                              decisions_disagree_worst_over_rms=tied["decisions"][
+                                  "worst_over_rms"],
+                              worst_grad_own_decisions=max((g, n) for n, (g, _) in untied.items()),
+                              tol=dict(tol, decision_tie=DECISION_TIE))
         else:
             noise = resnet_dists(cpu, runs[("cpu", False)])
             ratios = {n: max(dist[n][k] / max(noise[n][k], 1e-12) for k in (0, 1)) for n in dist}
@@ -2344,12 +2434,14 @@ def no_kernel_launched(ta, phase: str) -> dict:
     return launches
 
 
-def ocr_parity_run(ptt, det_state, rec_state, dev, data):
+def ocr_parity_run(ptt, det_state, rec_state, dev, data, masks, force):
     """The tiny DBNet and CRNN from one state on `dev`: DBNet's train maps,
     db_loss and grads (the batch norms' momentum 0, so the buffers become the
     batch's statistics), then the eval prob map of a second pair of pages;
     CRNN's logits, CTC loss and grads; the CTC gradient of the logits from
-    the port's ctc_loss and from torch's."""
+    the port's ctc_loss and from torch's. The ReLU and max-pool decisions
+    are recorded into `masks` ({"det": [], "rec": []}) or (force) taken
+    from it, as resnet_parity's f32 runs take them."""
     from paddle_tpu_torch.models import ocr
 
     F = ptt.nn.functional
@@ -2357,6 +2449,8 @@ def ocr_parity_run(ptt, det_state, rec_state, dev, data):
     det.load_state_dict(det_state)
     rec.load_state_dict(rec_state)
     det.to(dev), rec.to(dev)
+    hooks, seen = zip(*(kink_decisions(m, masks[k], force) for k, m in (("det", det),
+                                                                         ("rec", rec))))
     for m in det.modules():
         if isinstance(m, ptt.nn.BatchNorm2D):
             m._momentum = 0.0
@@ -2379,9 +2473,13 @@ def ocr_parity_run(ptt, det_state, rec_state, dev, data):
         inp = leaf if fn is F.ctc_loss else torch.log_softmax(leaf, -1)
         fn(inp, d["labels"], lengths, d["label_lengths"]).backward()
         ctc_grads.append(leaf.grad.cpu())
+    for h in sum(hooks, []):
+        h.remove()
     return dict(maps=maps.detach().cpu(), loss=loss.item(), det_grads=grads_of(det),
                 prob=prob.cpu(), logits=logits.detach().cpu(), ctc=ctc.item(),
-                rec_grads=grads_of(rec), ctc_grads=ctc_grads)
+                rec_grads=grads_of(rec), ctc_grads=ctc_grads,
+                decisions=dict(disagree=sum(r["disagree"] for r in seen),
+                          worst_over_rms=max(r["worst_over_rms"] for r in seen)))
 
 
 def ocr_parity(ptt):
@@ -2406,7 +2504,13 @@ def ocr_parity(ptt):
         crops=rng.rand(PARITY_CROPS, 3, 32, 100).astype(np.float32),
         labels=rng.randint(1, 11, (PARITY_CROPS, 5)).astype(np.int64),
         label_lengths=np.array([5, 3, 4, 1][:PARITY_CROPS], np.int64)).items()}
-    card, cpu = (ocr_parity_run(ptt, det_state, rec_state, dev, data) for dev in ("cuda", "cpu"))
+    masks = {"det": [], "rec": []}
+    card = ocr_parity_run(ptt, det_state, rec_state, "cuda", data, masks, False)
+    cpu = ocr_parity_run(ptt, det_state, rec_state, "cpu", data, masks, True)
+    if not cpu["decisions"]["worst_over_rms"] <= DECISION_TIE:
+        raise AssertionError(f"ocr_parity: a ReLU or max pool decides otherwise on the card than "
+                             f"on the CPU away from a tie: {cpu['decisions']} (limit {DECISION_TIE} "
+                             "of the input's rms)")
     dists = dict(db_loss=(abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), "loss"),
                  ctc=(abs(card["ctc"] - cpu["ctc"]) / abs(cpu["ctc"]), "loss"),
                  train_maps=(_rel(card["maps"], cpu["maps"]), "out"),
@@ -2432,7 +2536,10 @@ def ocr_parity(ptt):
     log("ocr_parity", pages=[n, 3, hw, hw], crops=[PARITY_CROPS, 3, 32, 100], frames=24,
         dists={k: v for k, (v, _) in dists.items()}, worst_det_grad=worst_det,
         worst_rec_grad=worst_rec, losses_card=[card["loss"], card["ctc"]],
-        losses_cpu=[cpu["loss"], cpu["ctc"]], boxes=[len(b) for b in on_host], tol=OCR_TOL)
+        losses_cpu=[cpu["loss"], cpu["ctc"]], boxes=[len(b) for b in on_host],
+        decision_calls={k: len(v) for k, v in masks.items()}, decisions_disagree=cpu["decisions"]["disagree"],
+        decisions_disagree_worst_over_rms=cpu["decisions"]["worst_over_rms"],
+        tol=dict(OCR_TOL, decision_tie=DECISION_TIE))
 
 
 def profile_calls(fns: dict, calls: int = 3, scopes=()) -> dict:
@@ -2467,8 +2574,6 @@ def profile_calls(fns: dict, calls: int = 3, scopes=()) -> dict:
 def lstm_scope():
     """A context in which every RNN time loop runs under the profiler scope
     `scope::lstm` (its step ops' device time)."""
-    import contextlib
-
     from torch.profiler import record_function
 
     from paddle_tpu_torch.nn.layers import rnn
@@ -2829,12 +2934,13 @@ def ppyoloe(ptt, ta, state, steps=5):
 # classification, BASELINE.json configs[1] (PaddleNLP's fine-tune loop).
 # ---------------------------------------------------------------------------
 
-def _op_table():
-    """tests/torch_op_table.py (numpy and torch only) of this checkout."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import torch_op_table
+def _tests_module(name):
+    """A numpy/torch-only module of this checkout's tests/ directory (the
+    parity tables, the seq2seq model)."""
+    import importlib
 
-    return torch_op_table
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    return importlib.import_module(name)
 
 
 def _same(got, want, tol) -> str:
@@ -2872,19 +2978,13 @@ def widened_calls(fn) -> dict:
     return counts
 
 
-def op_surface(ptt):
-    """Every row of the parity table on the card against the port on the
-    CPU (f32; bf16 rows also in bf16; gradients for the float rows), the
-    random ops' determinism and moments on the card, the widened methods'
-    torch forms against the saved C methods, and the host microseconds a
-    widened method adds to a call."""
-    tab = _op_table()
-    from paddle_tpu_torch.ops import _patch
-
-    t0 = time.perf_counter()
+def table_on_card(ptt, tab, cases, phase):
+    """Each (row, bf16) case of a parity table run by the port on the card
+    and on the CPU (gradients for the float rows), held to the row's
+    tolerance; raises naming every row that differs. Returns (cases, cases
+    with gradients)."""
     bad, n_cases, n_grads = [], 0, 0
-    for row, bf16 in ([(r, False) for r in tab.ROWS + tab.INPLACE_ROWS]
-                      + [(r, True) for r in tab.ROWS if r.bf16]):
+    for row, bf16 in cases:
         dtype = torch.bfloat16 if bf16 else None
         tol = tab.TOL["bf16" if bf16 else row.tol]
         gtol = tab.TOL["bf16_grad" if bf16 else row.tol + "_grad"]
@@ -2910,10 +3010,25 @@ def op_surface(ptt):
                       if not (g is None and w is None)]
         if any(diffs):
             bad.append(f"{label}: {[d for d in diffs if d]}")
-    table_s = time.perf_counter() - t0
     if bad:
-        raise AssertionError(f"op_surface: {len(bad)} of {n_cases} rows differ between the card "
+        raise AssertionError(f"{phase}: {len(bad)} of {n_cases} rows differ between the card "
                              f"and the CPU: {bad}")
+    return n_cases, n_grads
+
+
+def op_surface(ptt):
+    """Every row of the parity table on the card against the port on the
+    CPU (f32; bf16 rows also in bf16; gradients for the float rows), the
+    random ops' determinism and moments on the card, the widened methods'
+    torch forms against the saved C methods, and the host microseconds a
+    widened method adds to a call."""
+    tab = _tests_module("torch_op_table")
+    from paddle_tpu_torch.ops import _patch
+
+    t0 = time.perf_counter()
+    n_cases, n_grads = table_on_card(ptt, tab, [(r, False) for r in tab.ROWS + tab.INPLACE_ROWS]
+                                     + [(r, True) for r in tab.ROWS if r.bf16], "op_surface")
+    table_s = time.perf_counter() - t0
     # random ops on the card: the same draws after seed(), and their moments
     n = 1 << 20
     rand_rec = {}
@@ -3230,6 +3345,379 @@ def ernie_finetune(ptt, ta, state):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the nn remainder: its functionals on the card, then Transformer training
+# and beam-search decoding (tests/torch_seq2seq.py's model)
+# ---------------------------------------------------------------------------
+
+def nn_surface(ptt):
+    """Every row of tests/torch_nn_table.py on the card against the port on
+    the CPU, as op_surface runs its table; then the random nn layers and
+    functionals on the card: drawn again equal after seed(), their kept
+    share and moments as the CPU tests hold them."""
+    tab, nn_tab = _tests_module("torch_op_table"), _tests_module("torch_nn_table")
+    t0 = time.perf_counter()
+    n_cases, n_grads = table_on_card(ptt, tab, [(r, False) for r in nn_tab.ROWS]
+                                     + [(r, True) for r in nn_tab.ROWS if r.bf16], "nn_surface")
+    table_s = time.perf_counter() - t0
+    F = ptt.nn.functional
+    n = 1 << 20
+    x = torch.randn(n, device="cuda")
+    neg = -torch.rand(n, device="cuda") - 0.1
+    draws = {"dropout": lambda: F.dropout(x, 0.3), "dropout_axis": lambda: F.dropout(
+                 x.reshape(1024, 1024), 0.5, axis=1),
+             "dropout2d": lambda: F.dropout2d(x.reshape(16, 64, 32, 32), 0.5),
+             "alpha_dropout": lambda: F.alpha_dropout(x, 0.2),
+             "rrelu": lambda: F.rrelu(neg, 0.1, 0.3),
+             "gumbel_softmax": lambda: F.gumbel_softmax(x.reshape(-1, 16), 0.5),
+             "Dropout": lambda: ptt.nn.Dropout(0.3)(x), "RReLU": lambda: ptt.nn.RReLU(0.1, 0.3)(neg)}
+    rec = {}
+    for name, fn in draws.items():
+        ptt.seed(7)
+        a = fn()
+        ptt.seed(7)
+        b = fn()
+        if a.device.type != "cuda" or not torch.equal(a, b):
+            raise AssertionError(f"nn_surface: {name} on the card is not drawn again equal")
+        rec[name] = dict(mean=a.float().mean().item(), std=a.float().std().item())
+    kept = (draws["dropout"]() != 0).float().mean().item()
+    slope = (draws["rrelu"]() / neg)
+    ad = draws["alpha_dropout"]()
+    rows = draws["gumbel_softmax"]().sum(-1)
+    checks = dict(dropout_kept=abs(kept - 0.7) < 0.01,
+                  rrelu_slopes=bool(slope.min() >= 0.1 and slope.max() <= 0.3
+                                    and abs(slope.mean().item() - 0.2) < 2e-3),
+                  alpha_dropout_moments=abs(ad.mean().item()) < 0.02
+                  and abs(ad.std().item() - 1.0) < 0.02,
+                  gumbel_rows_sum_to_one=bool(torch.allclose(rows, torch.ones_like(rows),
+                                                             atol=1e-5)))
+    if not all(checks.values()):
+        raise AssertionError(f"nn_surface: random draws on the card: {checks} {rec}")
+    log("nn_surface", rows=n_cases, rows_with_grads=n_grads, table_s=table_s,
+        tol={k: v for k, v in tab.TOL.items()}, random=rec, random_checks=checks)
+
+
+TINY_S2S = dict(vocab=512, d_model=32, nhead=4, num_encoder_layers=2, num_decoder_layers=2,
+                dim_feedforward=64, dropout=0.0)
+
+
+@contextlib.contextmanager
+def kernel_rounding(ta):
+    """The flash wrapper's plain version on CPU tensors, rounding where the
+    kernels round: exp(s - m) to the storage type before P.V and the
+    division by l after it (flash_fwd.cu, as pallas.py:413-415), where the
+    plain version rounds the normalized p (as pallas.py:361). The backward
+    and the masked chain (its calls pass a mask) keep the plain version,
+    with whose rounding the backward kernels agree exactly."""
+    plain = ta._flash_plain
+
+    def rounded_as_kernel(q, k, v, causal, scale, dropout_p, seed, *mask):
+        if mask:
+            return plain(q, k, v, causal, scale, dropout_p, seed, *mask)
+        if dropout_p:
+            raise ValueError("kernel_rounding takes no dropout")
+        sq, sk = q.shape[1], k.shape[1]
+        qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+        s = (qh @ kh.transpose(-1, -2)) * scale
+        if causal:
+            s = s.masked_fill(~torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq), -1e30)
+        m = s.max(dim=-1, keepdim=True).values
+        e = torch.exp(s - m)
+        l = e.sum(dim=-1, keepdim=True)
+        out = (e.to(q.dtype).float() @ vh) / l
+        return out.to(q.dtype).transpose(1, 2), (m + torch.log(l)).squeeze(-1)
+
+    ta._flash_plain = rounded_as_kernel
+    try:
+        yield
+    finally:
+        ta._flash_plain = plain
+
+
+def s2s_step(ptt, s2s, model, opt, batch, vocab, amp=True, keep_grads=False):
+    """One training step of the label-smoothed loss: (loss, CPU f32 grads or None)."""
+    src, tgt_in, labels = batch
+    with ptt.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+        loss = s2s.loss_fn(ptt, model(src, tgt_in), labels, vocab)
+    loss.backward()
+    grads = ({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+             if keep_grads else None)
+    opt.step()
+    opt.clear_grad()
+    return loss, grads
+
+
+def transformer_parity(ptt, ta):
+    """The tiny seq2seq from one set of weights on the card (kernels) and on
+    the CPU (plain versions), 2 fused-Adam steps each in f32 and in AMP O1
+    bf16: f32 held as resnet_parity holds it; O1 held by ernie_parity's
+    limits against a CPU O1 run that rounds where the kernels round
+    (kernel_rounding); then greedy (beam 1) and beam-4 decoding in f32 on
+    both from the card's trained O1 weights: ids equal."""
+    s2s = _tests_module("torch_seq2seq")
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.set_device("cpu")
+    ptt.seed(3)
+    ref_state = {k: v.detach().clone() for k, v in s2s.make_model(ptt, **TINY_S2S).state_dict().items()}
+    data = s2s.copy_task(np.random.RandomState(4), 4, 16, TINY_S2S["vocab"])
+
+    def run(dev, amp):
+        ptt.set_device(dev)
+        model = s2s.make_model(ptt, **TINY_S2S)
+        model.set_state_dict(ref_state)
+        opt = ptt.optimizer.Adam(TRAIN_LR, beta1=0.9, beta2=0.98, epsilon=1e-9,
+                                 parameters=model.parameters())
+        batch = [torch.from_numpy(a).to(dev) for a in data]
+        before = dict(ta.LAUNCHES)
+        loss1, grads = s2s_step(ptt, s2s, model, opt, batch, TINY_S2S["vocab"], amp, True)
+        loss2, _ = s2s_step(ptt, s2s, model, opt, batch, TINY_S2S["vocab"], amp)
+        return dict(losses=[loss1.item(), loss2.item()], grads=grads,
+                    launches={k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP},
+                    before={n: w.float() for n, w in ref_state.items()},
+                    after={n: p.detach().float().cpu() for n, p in model.named_parameters()},
+                    buckets=len(opt._flat_engine.buckets))
+
+    runs = {(dev, amp): run(dev, amp)
+            for dev, amp in (("cuda", True), ("cpu", True), ("cuda", False), ("cpu", False))}
+    with kernel_rounding(ta):
+        runs[("cpu_k", True)] = run("cpu", True)
+    layers = TINY_S2S["num_encoder_layers"] + TINY_S2S["num_decoder_layers"]
+    for amp in (True, False):
+        card, cpu = runs[("cuda", amp)], runs[("cpu", amp)]
+        want = {"flash_fwd": 2 * layers, "flash_bwd_dq": 2 * layers,
+                "flash_bwd_dkdv": 2 * layers, "fused_adamw": 2 * card["buckets"]}
+        if card["launches"] != want or any(v for r in (cpu, runs[("cpu_k", True)])
+                                           for v in r["launches"].values()):
+            raise AssertionError(f"transformer_parity: launches card {card['launches']}, cpu "
+                                 f"{cpu['launches']}; expected {want} on the card, none on the CPU")
+    card, cpu = runs[("cuda", False)], runs[("cpu", False)]
+    # the key biases' gradient is 0 but for rounding (C-trap10): held as
+    # noise against the same attention's query-bias gradient, on both
+    # devices, and left out of the f32 distances (Adam steps noise by ~lr)
+    zero = {n: cpu["grads"][n.replace("k_proj", "q_proj")].norm().item()
+            for n in cpu["grads"] if n.endswith("k_proj.bias")}
+    zero_noise = max(r["grads"][n].norm().item() / ref for r in runs.values()
+                     for n, ref in zero.items())
+    dist = {n: d for n, d in resnet_dists(card, cpu).items() if n not in zero}
+    f32 = dict(loss_err=[abs(a - b) / cpu["losses"][0] for a, b in zip(card["losses"],
+                                                                       cpu["losses"])],
+               worst_grad=max((g, n) for n, (g, _) in dist.items()),
+               worst_change=max((c, n) for n, (_, c) in dist.items()),
+               key_bias_grad_over_query_bias=zero_noise)
+    ok = (max(f32["loss_err"]) <= RESNET_F32_TOL["loss"]
+          and f32["worst_grad"][0] <= RESNET_F32_TOL["grad"]
+          and f32["worst_change"][0] <= RESNET_F32_TOL["change"] and zero_noise <= ZERO_GRAD_NOISE)
+    # O1: the card against the CPU run with the kernels' rounding points
+    card, cpu = runs[("cuda", True)], runs[("cpu_k", True)]
+    grad_dist = lambda x, y: {n: d[0] for n, d in resnet_dists(x, y).items()
+                              if n in y["grads"] and n not in zero}
+    dist = grad_dist(card, cpu)
+    worst = max((g, n) for n, g in dist.items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    dp = torch.cat([(card["after"][n] - w).abs().reshape(-1) for n, w in cpu["after"].items()])
+    # for the record: the card against the plain version's O1 run, and the
+    # two CPU roundings (normalized p or not) against each other
+    vs_plain, roundings = grad_dist(card, runs[("cpu", True)]), grad_dist(cpu, runs[("cpu", True)])
+    o1 = dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_max_rel_err=loss_rel,
+              worst_grad=worst, median_grad=float(np.median(list(dist.values()))),
+              param_max_abs_diff_over_lr=dp.max().item() / TRAIN_LR,
+              param_mean_abs_diff_over_lr=dp.mean().item() / TRAIN_LR,
+              vs_plain_rounding=dict(worst=max((g, n) for n, g in vs_plain.items()),
+                                     median=float(np.median(list(vs_plain.values())))),
+              plain_vs_kernel_rounding_on_cpu=dict(
+                  worst=max((g, n) for n, g in roundings.items()),
+                  median=float(np.median(list(roundings.values())))))
+    ok = (ok and loss_rel <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_REL
+          and o1["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+          and o1["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR)
+    # decoding from one set of weights (the card's O1-trained), f32 on both
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        ptt.set_device(dev)
+        model = s2s.make_model(ptt, **TINY_S2S)
+        model.set_state_dict(runs[("cuda", True)]["after"])
+        model.eval()
+        src = torch.from_numpy(data[0][:2]).to(dev)
+        with torch.no_grad():
+            ids[dev] = {beam: [t.cpu() for t in s2s.beam_search(ptt, model, src, beam, 12,
+                                                                first_step_cache=False)]
+                        for beam in (1, 4)}
+    ptt.set_device("cuda")
+    # ids and lengths exactly; the scores (f32 log-probs) to f32 rounding
+    ids_equal = {beam: (torch.equal(ids["cuda"][beam][0], ids["cpu"][beam][0])
+                        and torch.equal(ids["cuda"][beam][2], ids["cpu"][beam][2])
+                        and torch.allclose(ids["cuda"][beam][1], ids["cpu"][beam][1], rtol=1e-5,
+                                           atol=1e-4))
+                 for beam in (1, 4)}
+    rec = dict(f32=f32, o1=o1, ids_equal=ids_equal, beam4_ids=ids["cuda"][4][0][0].tolist(),
+               tol=dict(f32=RESNET_F32_TOL, key_bias_noise=ZERO_GRAD_NOISE,
+                        o1_loss_rel=TRAIN_LOSS_RTOL, o1_grad_rel_l2=TRAIN_GRAD_REL,
+                        o1_param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                        o1_param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR))
+    if not (ok and all(ids_equal.values())):
+        raise AssertionError(f"transformer_parity: card and CPU runs disagree: {rec}")
+    log("transformer_parity", **TINY_S2S, launches=runs[("cuda", True)]["launches"], steps=2,
+        **rec)
+
+
+# Vaswani et al. 2017, Table 3 "base", as PaddleNLP's machine_translation/
+# transformer trains it on WMT14 en-de (shared BPE vocabulary of ~37000)
+TRANSFORMER_BASE = dict(vocab=37000, d_model=512, nhead=8, num_encoder_layers=6,
+                        num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+S2S_BATCH, S2S_SEQ, S2S_STEPS = 64, 64, 10  # 4096 target tokens a step, PaddleNLP's batch_size
+DECODE_SOURCES, DECODE_BEAM = 8, 4
+DECODE_STEPS = S2S_SEQ + 50  # the paper's input length + 50
+
+
+def transformer_base(ptt, ta, state):
+    """Transformer-base training then beam-search decoding on the card."""
+    s2s = _tests_module("torch_seq2seq")
+    cfg = TRANSFORMER_BASE
+    d, heads = cfg["d_model"], cfg["nhead"]
+    variant = {k: ta.kernel_variant(k, torch.bfloat16, d // heads)
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    if set(variant.values()) != {"wgmma"}:
+        raise AssertionError(f"transformer_base: head_dim {d // heads} runs {variant}")
+    # B1 at the decode shapes (beam 4 x 8 sources, bf16): one query against
+    # the self-attention cache (odd lengths, the last 114) and the
+    # cross-attention's 64 memory rows, against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = DECODE_SOURCES * DECODE_BEAM
+    decode_b1 = [check_flash(ta, gen, f"bf16 decode B{b} Sq1 Sk{sk} H8 D64", b, 1, sk, heads, heads,
+                             d // heads, torch.bfloat16, False, timed=sk in (S2S_SEQ, DECODE_STEPS))
+                 for sk in (1, 7, 33, S2S_SEQ, 113, DECODE_STEPS)]
+    # B1-B3 at the training shape (the encoder's and the cross-attention's
+    # unmasked calls), with the phase's attention dropout and without
+    train_shape = (S2S_BATCH, S2S_SEQ, S2S_SEQ, heads, heads, d // heads)
+    train_cases = [(f"bf16 non-causal B{S2S_BATCH} S{S2S_SEQ} H{heads} D{d // heads}"
+                    + (f" dropout p={p}" if p else "") + " (Transformer-base train)", p)
+                   for p in (cfg["dropout"], 0.0)]
+    train_b1 = [check_flash(ta, gen, case, *train_shape, torch.bfloat16, False, dropout_p=p,
+                            timed=True) for case, p in train_cases]
+    train_bwd = [(case, check_flash_bwd(ta, gen, case, *train_shape, torch.bfloat16, False,
+                                        dropout_p=p, timed=True)) for case, p in train_cases]
+    if (any(r["variant"] != "wgmma" for r in train_b1)
+            or any(r["variant"] != "wgmma" for _, recs in train_bwd for r in recs)):
+        raise AssertionError("transformer_base: the training shape's flash kernels did not run "
+                             "the wgmma variant")
+    fwd_keys = ("case", "variant", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                "bound_ms", "max_abs_err")
+    state["transformer_by_shape"] = {
+        "flash_fwd": [{k: r.get(k) for k in fwd_keys} for r in train_b1 + decode_b1
+                      if "ms" in r],
+        **{kname: [dict(case=case, **{k: recs[i][k] for k in ("variant", "ms", "graph_ms",
+                                                               "plain_ms", "library_ms",
+                                                               "bound_ms", "max_abs_err")})
+                   for case, recs in train_bwd]
+           for i, kname in enumerate(("flash_bwd_dq", "flash_bwd_dkdv"))}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.set_device("cuda")
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    ptt.seed(0)
+    t0 = time.perf_counter()
+    model = s2s.make_model(ptt, **cfg)
+    sched = ptt.optimizer.lr.NoamDecay(d_model=d, warmup_steps=4000, learning_rate=2.0)
+    opt = ptt.optimizer.Adam(sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+                             parameters=model.parameters())
+    data = s2s.copy_task(np.random.RandomState(0), S2S_BATCH, S2S_SEQ, cfg["vocab"])
+    batch = [torch.from_numpy(a).cuda() for a in data]
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad(), ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            out = s2s.loss_fn(ptt, model(batch[0], batch[1]), batch[2], cfg["vocab"]).item()
+        model.train()
+        return out
+
+    loss_before = eval_loss()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    losses, per_step = [], []
+    for i in range(S2S_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(ta.LAUNCHES)
+        losses.append(s2s_step(ptt, s2s, model, opt, batch, cfg["vocab"])[0])
+        sched.step()
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (S2S_STEPS - 1)
+    train_launches = dict(ta.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    loss_after = eval_loss()
+    buckets = len(opt._flat_engine.buckets)
+    layers = cfg["num_encoder_layers"] + cfg["num_decoder_layers"]
+    want_step = {"flash_fwd": layers, "flash_bwd_dq": layers, "flash_bwd_dkdv": layers,
+                 "fused_adamw": buckets}
+    if any(p != want_step for p in per_step):
+        raise AssertionError(f"transformer_base: launches per step {per_step} != {want_step}")
+    if not (all(math.isfinite(x) for x in losses) and loss_after < loss_before):
+        raise AssertionError(f"transformer_base: losses not finite, or the eval loss did not "
+                             f"fall: {losses}, {loss_before} -> {loss_after}")
+    # 6 N a target token (the shared embedding counted once, as the output
+    # projection's GEMM; source and target lengths are equal) plus attention:
+    # 12 S d a token for each encoder self-, decoder self- and cross-attention
+    attn = 12 * S2S_SEQ * d * (cfg["num_encoder_layers"] + 2 * cfg["num_decoder_layers"])
+    flops_per_token = 6 * n_params + attn
+    tokens_per_sec = S2S_BATCH * S2S_SEQ / (step_ms / 1e3)
+    prof = profile_train(lambda: s2s_step(ptt, s2s, model, opt, batch, cfg["vocab"]), step_ms)
+    # decoding: the main path's second half
+    model.eval()
+    src = batch[0][:DECODE_SOURCES]
+    ta.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        ids, scores, lengths = s2s.beam_search(ptt, model, src, DECODE_BEAM, DECODE_STEPS,
+                                               first_step_cache=False)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = dict(ta.LAUNCHES)
+    steps = ids.shape[1]
+    sc = scores.float()
+    if not (tuple(ids.shape) == (DECODE_SOURCES, steps, DECODE_BEAM) and 0 < steps <= DECODE_STEPS
+            and bool(torch.isfinite(sc[:, 0]).all()) and bool((sc.diff(dim=2) <= 1e-3).all())):
+        raise AssertionError(f"transformer_base: beam output {tuple(ids.shape)} not [8, T, 4] "
+                             "with finite scores sorted across beams")
+    want_decode = {"flash_fwd": cfg["num_encoder_layers"] + 2 * cfg["num_decoder_layers"] * steps}
+    if decode_launches["flash_fwd"] != want_decode["flash_fwd"]:
+        raise AssertionError(f"transformer_base: decode launches {decode_launches} != "
+                             f"{want_decode}")
+    total = {k: train_launches[k] + decode_launches[k] for k in train_launches}
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "fused_adamw"):
+        if not total[k]:
+            raise AssertionError(f"transformer_base: {k} was never launched")
+    state["transformer_launches"] = total
+    log("transformer_base", **cfg, params_m=n_params / 1e6, batch=S2S_BATCH, seq=S2S_SEQ,
+        head_dim=d // heads, variant=variant, init_s=init_s, losses=losses,
+        eval_loss_before=loss_before, eval_loss_after=loss_after, lr_last=sched.get_lr(),
+        ms_per_step=step_ms, target_tokens_per_sec=tokens_per_sec,
+        flops_per_token=flops_per_token,
+        mfu=tokens_per_sec * flops_per_token / PEAK_FLOPS[torch.bfloat16], peak_mem_gb=peak,
+        launches_train=train_launches, launches_per_step=per_step[0], buckets=buckets,
+        decode=dict(sources=DECODE_SOURCES, beam=DECODE_BEAM, max_steps=DECODE_STEPS,
+                    steps=steps, seconds=decode_s, ms_per_step=decode_s * 1e3 / steps,
+                    beam_tokens_per_sec=DECODE_SOURCES * DECODE_BEAM * steps / decode_s,
+                    source_tokens_per_sec=DECODE_SOURCES * steps / decode_s,
+                    lengths=lengths[:, 0].tolist(), best_ids_0=ids[0, :12, 0].tolist(),
+                    launches=decode_launches),
+        b1_decode_shapes=[{k: r.get(k) for k in ("case", "variant", "ms", "plain_ms",
+                                                  "library_ms", "bound_ms", "max_abs_err")}
+                          for r in decode_b1],
+        flash_by_shape=state["transformer_by_shape"])
+    log("transformer_base profile", **prof)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
@@ -3238,7 +3726,8 @@ def main(argv=None) -> int:
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
-                                        "ernie_finetune",
+                                        "ernie_finetune,nn_surface,transformer_parity,"
+                                        "transformer_base",
                     help="comma list of phases to run (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not torch.cuda.is_available():
@@ -3438,6 +3927,15 @@ def main(argv=None) -> int:
         ernie_cls_parity(ptt, ta)
     if "ernie_finetune" in phases:  # BASELINE configs[1]
         ernie_finetune(ptt, ta, state)
+    if "nn_surface" in phases:
+        nn_surface(ptt)
+    if "transformer_parity" in phases:
+        transformer_parity(ptt, ta)
+    if "transformer_base" in phases:  # Vaswani et al. 2017 base, PaddleNLP's recipe
+        transformer_base(ptt, ta, state)
+    for kname, rows in state.get("transformer_by_shape", {}).items():
+        rec = records.setdefault(kname, {})
+        rec["by_shape"] = rec.get("by_shape", []) + rows
 
     k = "paddle_tpu_torch/ops/kernels/"
     sources = {
@@ -3458,7 +3956,8 @@ def main(argv=None) -> int:
                **state.get("ernie_launches", {}), "resnet50_train": state.get("resnet_launches", {}),
                "ppocr_e2e": state.get("ppocr_launches", {}),
                "ocr_train": state.get("ocr_train_launches", {}),
-               "ppyoloe": state.get("ppyoloe_launches", {})}
+               "ppyoloe": state.get("ppyoloe_launches", {}),
+               "transformer_base": state.get("transformer_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():

@@ -73,17 +73,34 @@ postprocess runs on the host, as there.
 The ops are plain torch ops (ops/{creation,math,manipulation,logic,search,
 linalg,einsum,inplace}.py); ops/_patch.py says which Tensor methods are
 paddle's and which stay torch's.
+
+    # nn: Transformer training and beam-search decoding
+    model = paddle.nn.Transformer(d_model=512, nhead=8, dim_feedforward=2048)
+    out = model(src_emb, tgt_emb, tgt_mask=model.generate_square_subsequent_mask(T))
+    decoder = paddle.nn.BeamSearchDecoder(cell, start_token=0, end_token=1, beam_size=4)
+    ids, _ = paddle.nn.dynamic_decode(decoder, inits=caches, max_step_num=114, memory=mem)
+
+The nn remainder (activations, losses, norms, pools, the functional
+common set, Layer's paddle methods, initializers, nn.utils, decode) is
+plain torch too; attention reaches the flash kernels where a call has no
+mask.
 """
 import torch
 
-from . import (amp, core, distributed, framework, incubate, inference, jit, models, nn, ops,
-               optimizer, quantization, regularizer, utils, vision)
+from . import (amp, core, device, distributed, framework, incubate, inference, jit, models, nn,
+               ops, optimizer, quantization, regularizer, utils, vision)
 from .core import autograd_engine as _autograd_engine
-from .framework.device import get_device, set_device
-from .framework.dtype import get_default_dtype, set_default_dtype
+from .framework.compat import (check_shape, disable_signal_handler, get_cuda_rng_state,
+                               set_cuda_rng_state)
+from .framework.device import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, TPUPlace,
+                               device_count, get_device, set_device)
+from .framework.dtype import convert_dtype, get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
 from .framework.io import load, save
-from .framework.random import seed
+from .framework.random import get_rng_state, seed, set_rng_state
+from .jit import to_static
+from .nn.functional import pdist
+from .nn.initializer import ParamAttr
 
 _autograd_engine.install()
 
@@ -102,13 +119,28 @@ from . import autograd, linalg, metric  # noqa: E402
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,  # noqa: E402
                        set_grad_enabled)
 
-bool = torch.bool  # noqa: A001  (paddle.bool)
+bool = bool_ = bool8 = torch.bool  # noqa: A001  (paddle.bool)
 (uint8, int8, int16, int32, int64, float16, bfloat16, float32, float64, complex64,
  complex128) = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64, torch.float16,
                 torch.bfloat16, torch.float32, torch.float64, torch.complex64, torch.complex128)
+float8_e4m3fn, float8_e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+dtype = torch.dtype  # the type of paddle.float32 and the rest
+
+
+def finfo(dtype):  # noqa: F811
+    """torch.finfo of a dtype or its name (bits, eps, max, min, tiny, ...)."""
+    return torch.finfo(convert_dtype(dtype))
+
+
+def iinfo(dtype):  # noqa: F811
+    return torch.iinfo(convert_dtype(dtype))
 
 
 def in_dynamic_mode():
+    return True
+
+
+def in_dynamic_or_pir_mode():
     return True
 
 
@@ -122,3 +154,63 @@ def enable_static():
 
 def is_compiled_with_cuda():
     return torch.cuda.is_available()
+
+
+def is_compiled_with_tpu():
+    """The port is not built for a TPU."""
+    return False
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_rocm():
+    return torch.version.hip is not None
+
+
+def is_compiled_with_cinn():
+    return False
+
+
+def is_compiled_with_distribute():
+    return torch.distributed.is_available()
+
+
+def get_cudnn_version():
+    return torch.backends.cudnn.version() if torch.cuda.is_available() else None
+
+
+def device_guard(*args, **kwargs):
+    """A no-op context (paddle's static-graph device placement)."""
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+class LazyGuard:
+    """paddle.LazyGuard: parameters are made when their layer is built,
+    as in the JAX package; the guard changes nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def batch(reader, batch_size, drop_last=False):
+    """paddle.batch: a reader of lists of `batch_size` items of `reader`'s
+    (the last shorter one kept unless drop_last)."""
+
+    def batched():
+        b = []
+        for item in reader():
+            b.append(item)
+            if len(b) == batch_size:
+                yield b
+                b = []
+        if b and not drop_last:
+            yield b
+
+    return batched

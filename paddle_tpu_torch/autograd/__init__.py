@@ -30,11 +30,17 @@ def _as_list(ts):
     return [ts] if isinstance(ts, torch.Tensor) else list(ts)
 
 
+def _seeds(roots, given):
+    """One seed per root: the given one, else ones for a root of more than
+    one element (the JAX package's rule; torch raises there)."""
+    given = [None] * len(roots) if given is None else _as_list(given)
+    return [autograd_engine.seed(r, g) for r, g in zip(roots, given)]
+
+
 def backward(tensors: Sequence[torch.Tensor], grad_tensors=None, retain_graph=False):
     """paddle.autograd.backward: accumulate into the leaves' .grad."""
     tensors = _as_list(tensors)
-    if grad_tensors is not None:
-        grad_tensors = _as_list(grad_tensors)
+    grad_tensors = _seeds(tensors, grad_tensors)
     with autograd_engine.backward_walk():
         torch.autograd.backward(tensors, grad_tensors, retain_graph=retain_graph)
 
@@ -45,8 +51,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=Fal
     without touching any .grad. With create_graph the results are part of
     the graph (grad of grad)."""
     outputs, inputs = _as_list(outputs), _as_list(inputs)
-    if grad_outputs is not None:
-        grad_outputs = _as_list(grad_outputs)
+    grad_outputs = _seeds(outputs, grad_outputs)
     if retain_graph is None:
         retain_graph = create_graph
     skip = {id(t) for t in (no_grad_vars or [])}

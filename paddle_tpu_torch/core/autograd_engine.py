@@ -9,6 +9,10 @@ backward that accumulates into `.grad` (`Tensor.backward`,
 observers that treat every backward as a training step (a grad reducer)
 can sit it out. The JAX package's tape itself (jax.vjp closures on
 GradNodes) has no counterpart: torch records the graph.
+
+`Tensor.backward` takes paddle's `grad_tensor=` (torch's `gradient=`),
+and a root of more than one element with no seed is seeded with ones,
+as the JAX package and paddle seed it (torch raises there).
 """
 from __future__ import annotations
 
@@ -77,12 +81,22 @@ def backward_walk(collect: bool = False):
 _torch_backward = torch.Tensor.backward
 
 
+def seed(root: torch.Tensor, grad):
+    """The seed of `root`: `grad` when given, else ones for a root of more
+    than one element (torch seeds a one-element root itself)."""
+    if grad is None and root.numel() != 1:
+        return torch.ones_like(root)
+    return grad
+
+
 @functools.wraps(_torch_backward)
-def _backward(self, *args, **kwargs):
+def _backward(self, gradient=None, retain_graph=None, create_graph=False, inputs=None,
+              grad_tensor=None):
+    gradient = seed(self, gradient if gradient is not None else grad_tensor)
     if not _backward_end_hooks:
-        return _torch_backward(self, *args, **kwargs)
+        return _torch_backward(self, gradient, retain_graph, create_graph, inputs)
     with backward_walk():
-        return _torch_backward(self, *args, **kwargs)
+        return _torch_backward(self, gradient, retain_graph, create_graph, inputs)
 
 
 def install() -> None:

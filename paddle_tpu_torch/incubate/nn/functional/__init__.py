@@ -81,8 +81,8 @@ def fused_linear_cross_entropy(x, weight, labels, bias=None, ignore_index=-100,
     without f32 [N, V] logits kept for the backward.
 
     x: [N, H] (or [..., H]; leading dims are flattened)
-    weight: [H, V], or [V, H] with transpose_weight=True (the port's
-      lm_head, a torch Linear, is [V, H])
+    weight: [H, V] (a Linear's), or [V, H] with transpose_weight=True (a
+      tied embedding's)
     labels: int [N] (or [...]); entries equal to ignore_index are masked
     Under AMP the float inputs cast as the white-listed op (bf16 under O1).
     Returns the f32 scalar loss.

@@ -240,9 +240,8 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None, cache=None, positions=None, last_index=None):
         h = self.llama(input_ids, cache=cache, positions=positions)
         if labels is not None:
-            # fused LM head + shifted CE; lm_head.weight is [V, H]
-            loss = fused_linear_cross_entropy(h[:, :-1], self.lm_head.weight, labels[:, 1:],
-                                              transpose_weight=True)
+            # fused LM head + shifted CE; lm_head.weight is [H, V]
+            loss = fused_linear_cross_entropy(h[:, :-1], self.lm_head.weight, labels[:, 1:])
             return loss, None
         if last_index is not None:
             # one position per row before the LM head (prefill takes the

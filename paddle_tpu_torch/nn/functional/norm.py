@@ -1,5 +1,5 @@
-"""batch_norm, rms_norm and layer_norm (counterpart of
-paddle_tpu/nn/functional/norm.py:21-130)."""
+"""batch_norm, rms_norm, layer_norm, group_norm, instance_norm and
+local_response_norm (counterpart of paddle_tpu/nn/functional/norm.py)."""
 from __future__ import annotations
 
 import torch
@@ -83,3 +83,49 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
     if bias is not None:
         out = out + bias.reshape(shape).to(x.dtype)
     return out
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape).to(out.dtype)
+    if bias is not None:
+        out = out + bias.reshape(shape).to(out.dtype)
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None, data_format="NCHW",
+               name=None):
+    """Normalized over each group of C / num_groups channels and the
+    spatial axes, the statistics in f32, cast back to x's type, then the
+    per-channel weight and bias. The black-listed op "group_norm" (f32
+    under AMP O1)."""
+    x, weight, bias = amp_cast_inputs("group_norm", [x, weight, bias])
+    channels_first = data_format.startswith("NC")
+    v = x if channels_first else x.movedim(-1, 1)
+    n, c = v.shape[0], v.shape[1]
+    r = v.reshape(n, num_groups, -1).float()
+    var, mean = torch.var_mean(r, dim=-1, keepdim=True, correction=0)
+    out = ((r - mean) * torch.rsqrt(var + epsilon)).reshape(v.shape).to(v.dtype)
+    out = _affine(out, weight, bias, (1, c) + (1,) * (v.dim() - 2))
+    return out if channels_first else out.movedim(1, -1)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None, bias=None,
+                  use_input_stats=True, momentum=0.9, eps=1e-5, data_format="NCHW", name=None):
+    """Each (sample, channel) normalized over its spatial axes, in x's type
+    (the JAX package's: no f32 upcast, no running statistics)."""
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return _affine(out, weight, bias, (1, -1) + (1,) * (x.dim() - 2))
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0, data_format="NCHW", name=None):
+    """x / (k + alpha * (sum of x^2 over `size` neighbouring channels) /
+    size) ** beta, the window [c - size // 2, c + (size - 1) // 2]."""
+    sq = x.square()
+    half = size // 2
+    pads = [0, 0] * (x.dim() - 2) + [half, size - half - 1]
+    padded = TF.pad(sq, pads)
+    acc = sum(padded.narrow(1, i, x.shape[1]) for i in range(size))
+    return x / torch.pow(k + alpha * acc / size, beta)

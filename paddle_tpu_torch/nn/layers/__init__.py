@@ -1,20 +1,28 @@
-from .activation import ReLU, Sigmoid, Silu, Tanh
-from .common import Dropout, Embedding, Linear
-from .container import LayerList, Sequential
+from .activation import (CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish,
+                         Hardtanh, LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU,
+                         ReLU6, RReLU, Sigmoid, Silu, Softmax, Softmax2D, Softplus, Softshrink,
+                         Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
+from .common import (AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity, Dropout, Dropout2D,
+                     Dropout3D, Embedding, Flatten, Fold, Identity, Linear, Pad1D, Pad2D, Pad3D,
+                     PairwiseDistance, PixelShuffle, PixelUnshuffle, Unflatten, Unfold, Upsample,
+                     UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D)
+from .container import LayerDict, LayerList, ParameterList, Sequential
 from .conv import Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose
-from .loss import CrossEntropyLoss
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm, RMSNorm
-from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D, AvgPool1D,
-                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss, CTCLoss,
+                   GaussianNLLLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss, L1Loss,
+                   MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss, MultiMarginLoss, NLLLoss,
+                   PoissonNLLLoss, RNNTLoss, SigmoidFocalLoss, SmoothL1Loss, SoftMarginLoss,
+                   TripletMarginLoss, TripletMarginWithDistanceLoss)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm, InstanceNorm1D,
+                   InstanceNorm2D, InstanceNorm3D, LayerNorm, LocalResponseNorm, RMSNorm,
+                   SpectralNorm, SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D, AvgPool2D, AvgPool3D,
+                      FractionalMaxPool2D, FractionalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+                      MaxUnPool1D, MaxUnPool2D, MaxUnPool3D)
 from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
                   SimpleRNNCell)
-from .transformer import MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer
+from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
+                          TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["ReLU", "Sigmoid", "Silu", "Tanh", "Dropout", "Embedding", "Linear", "LayerList",
-           "Sequential", "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
-           "Conv3DTranspose", "CrossEntropyLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "LayerNorm", "RMSNorm", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveAvgPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
-           "MaxPool3D", "GRU", "LSTM", "RNN", "BiRNN", "GRUCell", "LSTMCell", "RNNCellBase",
-           "SimpleRNN", "SimpleRNNCell", "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = [n for n in dir() if n[0].isupper()]

@@ -1,9 +1,13 @@
-"""Linear, Embedding and Dropout (counterpart of
-paddle_tpu/nn/layers/common.py:16-72).
+"""The common layers (counterpart of paddle_tpu/nn/layers/common.py):
+Linear, Embedding, the dropouts, Flatten/Unflatten, Identity, the
+upsamplers, Bilinear, the shuffles, the pads, the distances and
+Unfold/Fold.
 
-Linear keeps torch's [out, in] weight (utils/convert.py transposes the
-JAX package's [in, out] on the way across) and initializes as paddle's:
-the weight XavierUniform, the bias zeros, unless an attr says otherwise.
+Linear keeps paddle's [in, out] weight, as the JAX package does, so its
+weights and state_dict cross between the packages unchanged and
+`F.linear(x, lin.weight, lin.bias)` is `lin(x)`. It initializes as
+paddle's: the weight XavierUniform, the bias zeros, unless an attr says
+otherwise.
 Its forward casts its inputs as the op "linear" under AMP: bf16 under O1.
 """
 from __future__ import annotations
@@ -12,13 +16,14 @@ import torch
 from torch.nn import functional as TF
 
 from ...amp import amp_cast_inputs
-from ..functional import common as F
+from .. import functional as F
+from ...ops import manipulation as _manip
 from ..initializer import Constant, XavierUniform
 from ..layer import Layer
 
 
 class Linear(Layer):
-    """y = x W^T + b with W [out, in]. `device`/`dtype` place the
+    """y = x W + b with W [in, out]. `device`/`dtype` place the
     parameters ("meta" allocates nothing)."""
 
     def __init__(self, in_features, out_features, weight_attr=None, bias_attr=None, name=None,
@@ -27,14 +32,16 @@ class Linear(Layer):
         self.in_features = in_features
         self.out_features = out_features
         kw = dict(dtype=dtype, device=device)
-        self.weight = self.create_parameter([out_features, in_features], attr=weight_attr,
+        self.weight = self.create_parameter([in_features, out_features], attr=weight_attr,
                                             default_initializer=XavierUniform(), **kw)
         self.bias = self.create_parameter([out_features], attr=bias_attr, is_bias=True,
                                           default_initializer=Constant(0.0), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = amp_cast_inputs("linear", [x, self.weight, self.bias])
-        return TF.linear(x, w, b)
+        # torch's linear takes [out, in]: the transpose is a view, and the
+        # GEMM reads it as a transposed operand (no copy)
+        return TF.linear(x, w.t(), b)
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}"
@@ -76,3 +83,206 @@ class Dropout(Layer):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training, data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training, data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return _manip.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Unflatten(Layer):
+    """Axis `axis` expanded into `shape`."""
+
+    def __init__(self, axis, shape, name=None):
+        super().__init__()
+        self.axis, self.shape_arg = axis, shape
+
+    def forward(self, x):
+        return _manip.unflatten(x, self.axis, self.shape_arg)
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest", align_corners=False,
+                 align_mode=0, data_format="NCHW", name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode, self.align_corners,
+                             self.align_mode, self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW", name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class Bilinear(Layer):
+    """out = x1 W x2 + b, W [out, in1, in2] (XavierUniform with fan_in in1
+    and fan_out out), b [out] zeros."""
+
+    def __init__(self, in1_features, in2_features, out_features, weight_attr=None, bias_attr=None,
+                 name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            default_initializer=XavierUniform(fan_in=in1_features, fan_out=out_features))
+        self.bias = self.create_parameter([out_features], attr=bias_attr, is_bias=True,
+                                          default_initializer=Constant(0.0))
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    pass
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)

@@ -1,5 +1,5 @@
-"""Sequential and LayerList (counterpart of
-paddle_tpu/nn/layers/container.py:12-79). Sublayers are named "0", "1",
+"""Sequential, LayerList, LayerDict and ParameterList (counterpart of
+paddle_tpu/nn/layers/container.py). Sublayers are named "0", "1",
 ... (or by the names given), so parameter names are the JAX package's:
 `layer1.0.conv1.weight`, `layer1.0.downsample.0.weight`."""
 from __future__ import annotations
@@ -79,3 +79,72 @@ class LayerList(Layer):
         self._modules.clear()
         for i, item in enumerate(items):
             self.add_sublayer(str(i), item)
+
+
+class LayerDict(Layer):
+    """Sublayers by name, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def keys(self):
+        return self._modules.keys()
+
+    def values(self):
+        return self._modules.values()
+
+    def items(self):
+        return self._modules.items()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, (dict, LayerDict)) else sublayers
+        for k, v in items:
+            self.add_sublayer(k, v)
+
+    def clear(self):
+        self._modules.clear()
+
+    def pop(self, key):
+        return self._modules.pop(key)
+
+
+class ParameterList(Layer):
+    """Parameters named by their index."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for p in parameters or ():
+            self.append(p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self)), parameter)
+        return self

@@ -1,5 +1,5 @@
-"""Pooling layers (counterpart of paddle_tpu/nn/layers/pooling.py:8-48):
-each calls its functional with the arguments it was built with."""
+"""Pooling layers (counterpart of paddle_tpu/nn/layers/pooling.py): each
+calls its functional with the arguments it was built with."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -47,3 +47,46 @@ def _adaptive_pool_layer(fn_name):
 AdaptiveAvgPool1D = _adaptive_pool_layer("adaptive_avg_pool1d")
 AdaptiveAvgPool2D = _adaptive_pool_layer("adaptive_avg_pool2d")
 AdaptiveAvgPool3D = _adaptive_pool_layer("adaptive_avg_pool3d")
+
+AdaptiveMaxPool1D = _adaptive_pool_layer("adaptive_max_pool1d")
+AdaptiveMaxPool2D = _adaptive_pool_layer("adaptive_max_pool2d")
+AdaptiveMaxPool3D = _adaptive_pool_layer("adaptive_max_pool3d")
+
+
+def _unpool_layer(n, default_format):
+    class _Unpool(Layer):
+        def __init__(self, kernel_size, stride=None, padding=0, data_format=default_format,
+                     output_size=None, name=None):
+            super().__init__()
+            self.args = (kernel_size, stride, padding, data_format, output_size)
+
+        def forward(self, x, indices):
+            k, s, p, df, osz = self.args
+            return getattr(F, f"max_unpool{n}d")(x, indices, k, s, p, data_format=df,
+                                                 output_size=osz)
+
+    _Unpool.__name__ = _Unpool.__qualname__ = f"MaxUnPool{n}D"
+    return _Unpool
+
+
+MaxUnPool1D = _unpool_layer(1, "NCL")
+MaxUnPool2D = _unpool_layer(2, "NCHW")
+MaxUnPool3D = _unpool_layer(3, "NCDHW")
+
+
+def _fractional_layer(n):
+    class _Fractional(Layer):
+        def __init__(self, output_size, kernel_size=None, random_u=None, return_mask=False,
+                     name=None):
+            super().__init__()
+            self.args = (output_size, kernel_size, random_u, return_mask)
+
+        def forward(self, x):
+            return getattr(F, f"fractional_max_pool{n}d")(x, *self.args)
+
+    _Fractional.__name__ = _Fractional.__qualname__ = f"FractionalMaxPool{n}D"
+    return _Fractional
+
+
+FractionalMaxPool2D = _fractional_layer(2)
+FractionalMaxPool3D = _fractional_layer(3)

@@ -1,29 +1,38 @@
-"""Transformer encoder layers (counterpart of
-paddle_tpu/nn/layers/transformer.py:19-156), [B, S, E] activations.
+"""Transformer layers (counterpart of paddle_tpu/nn/layers/transformer.py),
+[B, S, E] activations: MultiHeadAttention with its decoding caches, the
+encoder and decoder layers and stacks, and Transformer.
 
 Attention runs through functional.scaled_dot_product_attention in [B, S,
 H, D]: the flash kernels on the card when no mask is given, the plain
-chain under an additive mask (as in the JAX package). The decoding caches
-(`cache=`, `gen_cache`) are not ported and raise.
+chain under a mask (as in the JAX package). So an encoder's and a
+cross-attention's unmasked calls, and every incremental decode step
+(one query against the cache, no mask), take the flash forward; a
+decoder self-attention with its causal `tgt_mask` takes the plain chain.
+
+`MultiHeadAttention.Cache(k, v)` is the incremental self-attention cache:
+each call appends the step's keys and values ([B, S, H, D]) and returns
+the grown cache beside the output. `StaticCache(k, v)` holds a
+cross-attention's projected memory, computed once by `gen_cache`.
 """
 from __future__ import annotations
 
+import collections
 import copy
 
+import numpy as np
 import torch
 
 from .. import functional as F
 from ..layer import Layer
 from .common import Dropout, Linear
+from .container import LayerList
 from .norm import LayerNorm
 
 
-def _no_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError("attention caches are not ported")
-
-
 class MultiHeadAttention(Layer):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None, vdim=None, need_weights=False,
                  weight_attr=None, bias_attr=None):
         super().__init__()
@@ -33,6 +42,7 @@ class MultiHeadAttention(Layer):
         if self.head_dim * num_heads != embed_dim:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
         self.dropout = dropout
+        self.need_weights = need_weights
         self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
         self.k_proj = Linear(kdim or embed_dim, embed_dim, weight_attr, bias_attr)
         self.v_proj = Linear(vdim or embed_dim, embed_dim, weight_attr, bias_attr)
@@ -42,15 +52,40 @@ class MultiHeadAttention(Layer):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads, self.head_dim)
 
     def forward(self, query, key=None, value=None, attn_mask=None, cache=None):
-        _no_cache(cache)
+        """The output, or (output, grown Cache) when given a Cache."""
         key = query if key is None else key
         value = query if value is None else value
         q = self._shape(self.q_proj(query))
-        k = self._shape(self.k_proj(key))
-        v = self._shape(self.v_proj(value))
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = self._shape(self.k_proj(key))
+            v = self._shape(self.v_proj(value))
+            if isinstance(cache, self.Cache):
+                k = torch.cat([cache.k, k], dim=1)
+                v = torch.cat([cache.v, v], dim=1)
+                cache = self.Cache(k, v)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                                              training=self.training)
-        return self.out_proj(out.reshape(out.shape[0], out.shape[1], self.embed_dim))
+        out = self.out_proj(out.reshape(out.shape[0], out.shape[1], self.embed_dim))
+        if cache is not None and not isinstance(cache, self.StaticCache):
+            return out, cache
+        return out
+
+    def gen_cache(self, key, value=None, type=Cache):  # noqa: A002
+        """StaticCache: the projected key/value of `key` (and `value`);
+        Cache: an empty [B, 0, H, D] one in key's dtype."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._shape(self.k_proj(key))
+            v = self._shape(self.v_proj(value if value is not None else key))
+            return self.StaticCache(k, v)
+        k = torch.zeros(key.shape[0], 0, self.num_heads, self.head_dim, dtype=key.dtype,
+                        device=key.device)
+        return self.Cache(k, k)
+
+
+def _ffn(layer, x):
+    return layer.linear2(layer.activation_dropout(layer._activation(layer.linear1(x))))
 
 
 class TransformerEncoderLayer(Layer):
@@ -74,39 +109,175 @@ class TransformerEncoderLayer(Layer):
         self._activation = getattr(F, activation)
 
     def forward(self, src, src_mask=None, cache=None):
-        _no_cache(cache)
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src, src_mask))
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        src = self.linear2(self.activation_dropout(self._activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = residual + self.dropout2(_ffn(self, src))
         if not self.normalize_before:
             src = self.norm2(src)
-        return src
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
+
+
+def _clones(layer, num_layers):
+    """`layer` and deep copies of it: every layer starts from the same
+    weights (as in paddle)."""
+    return LayerList([layer] + [copy.deepcopy(layer) for _ in range(num_layers - 1)])
 
 
 class TransformerEncoder(Layer):
-    """`num_layers` layers: `encoder_layer` and deep copies of it, so every
-    layer starts from the same weights (as in paddle)."""
-
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = torch.nn.ModuleList(
-            [encoder_layer] + [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.layers = _clones(encoder_layer, num_layers)
         self.num_layers = num_layers
         self.norm = norm
 
     def forward(self, src, src_mask=None, cache=None):
-        _no_cache(cache)
-        out = src
-        for layer in self.layers:
-            out = layer(out, src_mask)
+        out, new_caches = src, []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                out = layer(out, src_mask)
+            else:
+                out, c = layer(out, src_mask, cache[i])
+                new_caches.append(c)
         if self.norm is not None:
             out = self.norm(out)
-        return out
+        return out if cache is None else (out, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    """Self-attention, cross-attention over `memory`, feed-forward; post-LN
+    (the default) or pre-LN. With `cache` = (Cache, StaticCache), as
+    gen_cache makes it, it decodes incrementally and returns (out, cache)."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1, activation="relu",
+                 attn_dropout=None, act_dropout=None, normalize_before=False, weight_attr=None,
+                 bias_attr=None, layer_norm_eps=1e-5):
+        super().__init__()
+        self.normalize_before = normalize_before
+        ad = dropout if attn_dropout is None else attn_dropout
+        self.self_attn = MultiHeadAttention(d_model, nhead, ad, weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, ad, weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps)
+        self.norm3 = LayerNorm(d_model, layer_norm_eps)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation_dropout = Dropout(dropout if act_dropout is None else act_dropout)
+        self._activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None, cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incremental = self.self_attn(tgt, tgt, tgt, tgt_mask, cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask,
+                              None if cache is None else cache[1])
+        if isinstance(tgt, tuple):
+            tgt = tgt[0]
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = residual + self.dropout3(_ffn(self, tgt))
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental, cache[1]))
+
+    def gen_cache(self, memory):
+        """(an empty self-attention Cache, the cross-attention StaticCache of memory)."""
+        return (self.self_attn.gen_cache(memory),
+                self.cross_attn.gen_cache(memory, memory, type=MultiHeadAttention.StaticCache))
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None, cache=None):
+        out, new_caches = tgt, []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                out = layer(out, memory, tgt_mask, memory_mask)
+            else:
+                out, c = layer(out, memory, tgt_mask, memory_mask, cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out if cache is None else (out, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        return [layer.gen_cache(memory) for layer in self.layers]
+
+
+class Transformer(Layer):
+    """Encoder and decoder stacks (custom ones if given); pre-LN stacks end
+    with a LayerNorm."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6, num_decoder_layers=6,
+                 dim_feedforward=2048, dropout=0.1, activation="relu", attn_dropout=None,
+                 act_dropout=None, normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        layer_args = (d_model, nhead, dim_feedforward, dropout, activation, attn_dropout,
+                      act_dropout, normalize_before, weight_attr, bias_attr)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            self.encoder = TransformerEncoder(TransformerEncoderLayer(*layer_args),
+                                              num_encoder_layers,
+                                              LayerNorm(d_model) if normalize_before else None)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            self.decoder = TransformerDecoder(TransformerDecoderLayer(*layer_args),
+                                              num_decoder_layers,
+                                              LayerNorm(d_model) if normalize_before else None)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None, memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length):
+        """[length, length] f32: 0 on and below the diagonal, -inf above."""
+        m = np.triu(np.full((length, length), -np.inf, np.float32), k=1)
+        from ...ops import creation
+
+        return creation.to_tensor(m)

@@ -46,7 +46,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> torch.Tensor:
 
 
 def _dev():
-    return _device.get_device()
+    return _device.current_device()
 
 
 def zeros(shape, dtype=None) -> Tensor:

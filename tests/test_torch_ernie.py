@@ -133,7 +133,7 @@ def test_parameter_names_and_order_match_jax():
     """named_parameters() of ErnieForMaskedLM in the JAX package's order
     (the fused AdamW bucket's flat layout follows it), decoder_bias first,
     and converting the JAX state gives exactly the port's key set and
-    shapes (a Linear weight the converter missed would keep [in, out])."""
+    shapes (every Linear weight [in, out] in both)."""
     paddle.seed(0)
     jm = jernie.ErnieForMaskedLM(jernie.ernie_tiny(**TINY))
     tm = ternie.ErnieForMaskedLM(ternie.ernie_tiny(**TINY))
@@ -243,18 +243,24 @@ def test_to_static_contract():
     want = lin(x)
     assert ptt.jit.to_static(lin) is lin and isinstance(lin.forward, ptt.jit.StaticFunction)
     assert torch.equal(lin(x), want)
-    opt = ptt.optimizer.AdamW(0.1, parameters=lin.parameters())
+    eager = ptt.nn.Linear(4, 3)
+    eager.set_state_dict(lin.state_dict())
 
-    @ptt.jit.to_static
-    def step(v):
-        loss = lin(v).square().sum()
+    def train_step(layer, opt, v):
+        loss = layer(v).square().sum()
         loss.backward()
         opt.step()
         opt.clear_grad()
         return loss
 
-    first = step(x)
-    assert step(x) < first and lin.weight.grad is None
+    opt, opt_eager = (ptt.optimizer.AdamW(0.1, parameters=m.parameters()) for m in (lin, eager))
+    step = ptt.jit.to_static(lambda v: train_step(lin, opt, v))
+    w0 = lin.weight.detach().clone()
+    # the captured step updates as the eager one does, twice over
+    for _ in range(2):
+        assert torch.equal(step(x), train_step(eager, opt_eager, x))
+    assert torch.equal(lin.weight, eager.weight) and torch.equal(lin.bias, eager.bias)
+    assert not torch.equal(lin.weight, w0) and lin.weight.grad is None
     ptt.jit.enable_to_static(False)
     ptt.jit.enable_to_static(True)
 

@@ -59,10 +59,10 @@ def test_weight_conversion_layout(models):
     jm, tm = models
     jstate = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
     tstate = tm.state_dict()
-    # paddle Linear [in, out] -> torch [out, in]; embedding unchanged
+    # paddle's Linear [in, out] in both packages, and the embedding: unchanged
     w = "llama.layers.0.self_attn.k_proj.weight"
-    assert jstate[w].shape == (64, 32) and tuple(tstate[w].shape) == (32, 64)
-    np.testing.assert_array_equal(tstate[w].numpy(), jstate[w].T)
+    assert jstate[w].shape == (64, 32) and tuple(tstate[w].shape) == (64, 32)
+    np.testing.assert_array_equal(tstate[w].numpy(), jstate[w])
     e = "llama.embed_tokens.weight"
     np.testing.assert_array_equal(tstate[e].numpy(), jstate[e])
     back = state_to_paddle_tpu(tstate)

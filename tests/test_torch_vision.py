@@ -22,7 +22,7 @@ from paddle_tpu_torch.models import detection as tdet
 from paddle_tpu_torch.models import ernie as ternie
 from paddle_tpu_torch.models import ocr as tocr
 from paddle_tpu_torch.models import llama as tllama
-from paddle_tpu_torch.utils.convert import is_linear_weight, state_from_paddle_tpu, state_to_paddle_tpu
+from paddle_tpu_torch.utils.convert import state_from_paddle_tpu, state_to_paddle_tpu
 from paddle_tpu_torch.vision import models as tmodels
 
 AMP_REL_L2 = 2e-2
@@ -168,7 +168,8 @@ def test_conv_layer_init_and_refusals():
     kw), its bias zeros; bias_attr=False gives none. The transposed convs
     draw their [in, out/groups, *k] weight from the JAX package's U(-k, k)
     with the same fan_in = in/groups * prod(k) (not torch's init), their
-    bias zeros. return_mask and a padding mode other than zeros raise."""
+    bias zeros. A padding mode other than zeros raises; max_pool2d's
+    return_mask gives the JAX package's flat indices of the maxima."""
     ptt.seed(0)
     conv = ptt.nn.Conv2D(64, 128, 3, groups=2)
     k = 1.0 / np.sqrt(32 * 9)
@@ -192,8 +193,13 @@ def test_conv_layer_init_and_refusals():
     assert tuple(up(torch.zeros(1, 4, 3, 5)).shape) == (1, 6, 6, 10)
     with pytest.raises(NotImplementedError):
         ptt.nn.Conv2D(3, 4, 3, padding_mode="reflect")
-    with pytest.raises(NotImplementedError):
-        ptt.nn.functional.max_pool2d(torch.zeros(1, 1, 4, 4), 2, return_mask=True)
+    x = np.random.RandomState(0).randn(1, 2, 5, 5).astype(np.float32)
+    out, mask = ptt.nn.functional.max_pool2d(torch.from_numpy(x), 2, 2, padding=1,
+                                             return_mask=True)
+    jout, jmask = paddle.nn.functional.max_pool2d(paddle.to_tensor(x), 2, 2, padding=1,
+                                                  return_mask=True)
+    assert torch.equal(out, torch.from_numpy(np.asarray(jout._value)))
+    assert torch.equal(mask, torch.from_numpy(np.asarray(jmask._value)))
 
 
 # ---------------------------------------------------------------------------
@@ -493,8 +499,9 @@ def test_resnet_names_and_shapes_match_jax(jax_runs, case, n_entries):
     """The port's parameters then buffers, in order, are the JAX
     state_dict's keys (102 for resnet18, 267 for resnet50, `bn1._mean`,
     `layer2.0.downsample.0.weight` and `fc.weight` among them); the JAX
-    state converts to exactly the port's shapes and back (`fc` is the one
-    Linear: its weight transposes, conv weights and buffers do not)."""
+    state converts to exactly the port's shapes and back (`fc`, the one
+    Linear, is [in, out] in both, as every conv weight and buffer is the
+    same in both)."""
     ptt.seed(0)
     tm = getattr(tmodels, RESNET_CASES[case][0])(num_classes=10)
     init = jax_runs[case]["init"]
@@ -504,7 +511,7 @@ def test_resnet_names_and_shapes_match_jax(jax_runs, case, n_entries):
     conv = state_from_paddle_tpu(init)
     assert {k: tuple(v.shape) for k, v in conv.items()} == \
         {k: tuple(v.shape) for k, v in tm.state_dict().items()}
-    assert tuple(conv["fc.weight"].shape) == (10, init["fc.weight"].shape[0])
+    assert tuple(conv["fc.weight"].shape) == (init["fc.weight"].shape[0], 10)
     back = state_to_paddle_tpu(conv)
     assert all(np.array_equal(back[k], v) for k, v in init.items())
 
@@ -575,19 +582,20 @@ def test_bench_build_resnet_step_runs_in_port(monkeypatch):
 
 def test_every_linear_weight_converts():
     """Each nn.Linear of every ported model (Llama, ERNIE MLM and classifier,
-    ResNet, CRNN) has
-    a weight name utils/convert transposes, and no other weight (conv,
-    transposed conv, LSTM, batch norm) does: a new model whose Linear names
-    the converter lacks, or whose other weights it would transpose, fails
-    here. PPYOLOE has no Linear: none of its weights is transposed."""
+    ResNet, CRNN) keeps paddle's [in, out] weight, and every parameter and
+    buffer (conv, transposed conv, LSTM, batch norm) crosses to the JAX
+    package's numpy layout and back unchanged: utils/convert transposes
+    nothing. PPYOLOE and DBNet have no Linear."""
     ptt.seed(0)
     models = [tllama.llama_tiny(), ternie.ErnieForMaskedLM(ternie.ernie_tiny()),
               ternie.ErnieForSequenceClassification(ternie.ernie_tiny(), num_classes=3),
               tmodels.resnet18(num_classes=10), tocr.CRNN(num_classes=11, hidden_size=32),
               tocr.DBNet(8, 32), tdet.PPYOLOE(num_classes=4, base_channels=8, neck_channels=32)]
     for model in models:
-        linears = {f"{n}.weight" for n, m in model.named_modules() if isinstance(m, ptt.nn.Linear)}
+        linears = [m for m in model.modules() if isinstance(m, ptt.nn.Linear)]
         assert bool(linears) == (type(model).__name__ not in ("DBNet", "PPYOLOE")), type(model)
-        for name, _ in model.named_parameters():
-            assert is_linear_weight(name) == (name in linears), (type(model).__name__, name)
-    assert not is_linear_weight("conv1.weight") and not is_linear_weight("bn1.weight")
+        for m in linears:
+            assert tuple(m.weight.shape) == (m.in_features, m.out_features), type(model).__name__
+        sd = model.state_dict()
+        back = state_from_paddle_tpu(state_to_paddle_tpu(sd))
+        assert all(torch.equal(back[k], v) for k, v in sd.items()), type(model).__name__

@@ -74,6 +74,13 @@ class Perm:
 
 
 @dataclasses.dataclass(frozen=True)
+class Arr:
+    """A fixed array (nested tuples) of `dtype`: labels of +-1, lengths."""
+    value: Any
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class Row:
     name: str
     args: Tuple[Any, ...]
@@ -107,7 +114,9 @@ def _make(spec, rng):
     if isinstance(spec, Perm):
         p = rng.permutation(spec.n).astype(np.int64)
         return ("t", p[:spec.k] if spec.k is not None else p)
-    if isinstance(spec, (list, tuple)) and spec and isinstance(spec[0], (F, I, B, SPD, Perm)):
+    if isinstance(spec, Arr):
+        return ("t", np.array(spec.value, spec.dtype))
+    if isinstance(spec, (list, tuple)) and spec and isinstance(spec[0], (F, I, B, SPD, Perm, Arr)):
         return ("list", type(spec)(_make(s, rng) for s in spec))
     return ("raw", spec)
 
@@ -156,8 +165,14 @@ _OP_MODULES = ("creation", "math", "manipulation", "logic", "search", "linalg", 
 
 
 def resolve(pkg, name):
-    """paddle.<name>, else paddle.linalg.<name>, else the ops module that
-    defines it (a few ops are not exported at the top in either package)."""
+    """paddle.<name> (a dotted name: paddle.nn.functional.<op>), else
+    paddle.linalg.<name>, else the ops module that defines it (a few ops are
+    not exported at the top in either package)."""
+    if "." in name:
+        obj = pkg
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
     for ns in (pkg, pkg.linalg):
         if hasattr(ns, name):
             return getattr(ns, name)
