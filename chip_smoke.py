@@ -14,6 +14,34 @@ Phases, one line each (any failure raises and exits non-zero):
                  scheduler, 32 new tokens each; launch counts; per-step logits
                  of one request against a no-cache full-forward recompute
   serve_int8     the same engine with an int8 KV pool: two runs, equal ids
+  telemetry_ab   the host cost of telemetry, request traces and the incident
+                 timeline on serve_bf16's path, off and on in turns (A B B A):
+                 the decode profile's host step and the scheduler's step
+  fleet_parity   the tiny f32 Llama's replica fleet on the card and on the CPU,
+                 deterministic algorithms on, one injected clock: a FaultPlan
+                 replica kill mid-decode, a hot swap mid-replay, a tiered fleet
+                 (int8 decode tier) with migration faults; routing, outcomes,
+                 evacuations, migrations and greedy ids equal
+  fleet_bf16     bench.py's _build_fleet traffic on serve_bf16's 32-layer model
+                 (engines: max_seq 512, block 16, batch 4): 32 Poisson requests
+                 replayed on fleets of 1, 2 and 4 replicas, the widest taking a
+                 hot swap to a copy of the weights at 30% and a replica kill at
+                 60%; then the shared-prefix burst on 2 replicas, untiered
+                 against 1 prefill + 1 int8 decode replica, and the tiered run
+                 again with migration faults and the decode replica killed;
+                 zero lost, only injected failures (each on the timeline),
+                 no real error in a replica step or a migration, no migration
+                 failure, exact launches, the unswapped replicas' tensors
+                 mid-rollout, migrated int8 pages byte-equal to quantize-on-
+                 write, ids equal a single engine's but at near-ties (a logit
+                 gap within the largest per-logit error a fleet engine shows,
+                 twice; a planted wrong token must fail that rule); first, B1
+                 and B4 against their plain versions at the fleet's shapes
+  qos_bf16       the 2-replica fleet at the same width under one QoSPolicy
+                 (two tenants 3:1 with token buckets, bounded queues, the
+                 brownout ladder): a burst sheds and climbs the ladder, a tail
+                 unwinds it; then create_predictor with llm_replicas=2 and QoS
+                 at predictor_f32's size against the single-replica predictor
   predictor_f32  save_llm -> Config -> create_predictor().run() at full width,
                  1 layer, f32: ids equal the no-cache greedy oracle
   train_parity   two tiny Llamas (head_dim 16: the CUDA-core flash kernels;
@@ -427,12 +455,13 @@ def boundary_ctx(ta, kv_dtype=torch.bfloat16) -> list:
 PAGED_L2_BYTES = 50e6  # the H100's L2: a timing that fits in it is warm
 
 
-def paged_inputs(gen, qn, kv_dtype, qdt=torch.bfloat16, ctx=PAGED_CTX):
+def paged_inputs(gen, qn, kv_dtype, qdt=torch.bfloat16, ctx=PAGED_CTX, max_seq=2048):
     """q [B, qn, 32, 128], one pool (k, v, scales) of 16-slot pages, a
-    shuffled block table of the engine's width (128 pages) padded with page
-    0, and each row's frontiers ending at its ctx - 1."""
+    shuffled block table of the engine's width (max_seq / 16 pages: 128 for
+    serve_bf16's engine) padded with page 0, and each row's frontiers ending
+    at its ctx - 1."""
     h, hkv, d, bs = 32, 8, 128, 16
-    b, m = len(ctx), 2048 // bs
+    b, m = len(ctx), max_seq // bs
     pool = paged_pool(gen, 1 + b * m, bs, hkv, d, qdt if kv_dtype is None else kv_dtype)
     q = torch.randn(b, qn, h, d, generator=gen, device="cuda").to(qdt)
     pages = (torch.randperm(b * m, generator=gen, device="cuda") + 1).reshape(b, m).int()
@@ -471,7 +500,8 @@ def rotated(call, pools):
     return fn
 
 
-def check_paged(ta, gen, name, qn, kv_dtype, qdt=torch.bfloat16, timed=False, ctx=PAGED_CTX):
+def check_paged(ta, gen, name, qn, kv_dtype, qdt=torch.bfloat16, timed=False, ctx=PAGED_CTX,
+                max_seq=2048):
     """The wrapper against the plain version on a shuffled pool, then a
     second launch on the same inputs, which must give the same bits.
 
@@ -479,7 +509,7 @@ def check_paged(ta, gen, name, qn, kv_dtype, qdt=torch.bfloat16, timed=False, ct
     pools with the same tables (cold_pools), so every call reads its pages
     from HBM; `eager_ms` is one call from Python on one pool, its host time
     included."""
-    q, pool, bt, qpos = paged_inputs(gen, qn, kv_dtype, qdt, ctx)
+    q, pool, bt, qpos = paged_inputs(gen, qn, kv_dtype, qdt, ctx, max_seq)
     kp, vp, sc = pool
     b, _, h, d = q.shape
     plan = ta.paged_split_plan(b, qn, h, kp.shape[2], d, bt.shape[1], kv_dtype=kp.dtype,
@@ -560,7 +590,9 @@ def serve_prompts(n=8, seed=0):
 
 def step_logits_error(engine, model, prompt, steps=32):
     """Prefill + (steps-1) decodes of one request through the engine,
-    against one no-cache forward of the final sequence."""
+    against one no-cache forward of the final sequence: each step's
+    ||cached - recomputed|| / ||recomputed||, the steps' argmax agreement,
+    and the largest |cached - recomputed| of any one logit."""
     pool = engine.pool
     pool.reset()
     pages = pool.alloc(pool.blocks_for_tokens(len(prompt) + steps))
@@ -576,7 +608,7 @@ def step_logits_error(engine, model, prompt, steps=32):
     got = np.stack(rows)
     rel = np.linalg.norm(got - ref, axis=-1) / np.linalg.norm(ref, axis=-1)
     agree = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
-    return [round(float(x), 5) for x in rel], agree
+    return [round(float(x), 5) for x in rel], agree, float(np.abs(got - ref).max())
 
 
 def profile_decode(engine, ctx=1000, steps=8):
@@ -671,18 +703,19 @@ def serve_bf16(ptt, ta, state):
     engine.pool.reset()
     if engine.generate(prompts, max_new_tokens=32) != ids:
         raise AssertionError("generate() ids differ from the replayed run's")
-    rels, agree = step_logits_error(engine, model, prompts[2])
+    rels, agree, elem = step_logits_error(engine, model, prompts[2])
     if not max(rels) <= LOGIT_REL_BOUND:
         raise AssertionError(f"cached vs recomputed logits rel err {max(rels)} > {LOGIT_REL_BOUND}")
     prof = profile_decode(engine)
     state["launches"] = launches
     state["bf16_ids"] = ids
+    state["logit_elem_err"] = elem
     log("serve_bf16", layers=L, weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9,
         init_s=init_s, prompt_lens=[len(p) for p in prompts], tokens_per_sec=stats["tokens_per_sec"],
         wall_s=stats["wall_s"], p50_ttft_ms=stats["p50_ttft_ms"], p99_ttft_ms=stats["p99_ttft_ms"],
         p50_tpot_ms=stats["p50_tpot_ms"], p99_tpot_ms=stats["p99_tpot_ms"], steps=steps,
         launches=launches, step_logits_rel_err=rels, rel_err_bound=LOGIT_REL_BOUND,
-        step_argmax_agreement=agree, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        step_logits_max_abs_err=elem, step_argmax_agreement=agree, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log("serve_bf16 decode profile", **prof)
     return model
 
@@ -740,6 +773,866 @@ def predictor_f32(ptt):
         if got[i].tolist() != cur[n:]:
             raise AssertionError(f"predictor ids {got[i].tolist()} != oracle {cur[n:]}")
     log("predictor_f32", prompts=len(lens), new_tokens=8, ids_equal_oracle=True)
+
+
+# ---------------------------------------------------------------------------
+# serving fleet: telemetry, fault injection, QoS, replicas, prefill/decode tiers
+# ---------------------------------------------------------------------------
+
+FLEET_ENGINE = dict(max_seq_len=512, block_size=16, max_batch=4, decode_batch_buckets=(4,))
+FLEET_SLO = dict(slo_ttft_ms=1000.0, slo_tpot_ms=200.0)  # bench.py's BENCH_FLEET_SLO_* defaults
+
+
+def fleet_traffic(vocab, n=32, seed=13, gap_s=0.002, max_seq=512):
+    """bench.py's _build_fleet traffic: seeded Poisson arrivals, prompts of
+    4 to max_seq/4 - 1 tokens, max_new from {4, 8, 16, max_seq/4}."""
+    from paddle_tpu_torch.inference import Request
+
+    rng = np.random.RandomState(seed)
+    max_prompt, gen_mix = max(8, max_seq // 4), [4, 8, 16, max(24, max_seq // 4)]
+    reqs, t = [], 0.0
+    for i in range(n):
+        t += rng.exponential(gap_s)
+        reqs.append(Request(
+            rid=i, prompt=rng.randint(0, vocab, (int(rng.randint(4, max_prompt)),)).tolist(),
+            max_new_tokens=int(rng.choice(gen_mix, p=[0.25, 0.3, 0.25, 0.2])), arrival_time=t))
+    return reqs
+
+
+def burst_traffic(vocab, n=16, seed=14, gap_s=0.0005, prefix_pages=2, block=16):
+    """bench.py's burst A/B traffic: a shared prefix of `prefix_pages` full
+    pages plus 2-5 tokens each, max_new from {4, 8, 12}."""
+    from paddle_tpu_torch.inference import Request
+
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, vocab, (prefix_pages * block,)).tolist()
+    reqs, t = [], 0.0
+    for i in range(n):
+        t += rng.exponential(gap_s)
+        reqs.append(Request(rid=i, prompt=shared + rng.randint(0, vocab, (int(rng.randint(2, 6)),)).tolist(),
+                            max_new_tokens=int(rng.choice([4, 8, 12])), arrival_time=t))
+    return reqs
+
+
+def hit_rate(fleet) -> float:
+    """bench.py's hit rate: the fraction of completed requests' prompt tokens
+    served from shared pages (capped at each prompt)."""
+    done = [r for r in fleet.finished if r.outcome == "completed"]
+    return round(sum(min(r.cached_tokens, r.prompt_len) for r in done)
+                 / max(1, sum(r.prompt_len for r in done)), 4)
+
+
+def spy_real_errors(fleet) -> list:
+    """Record every real exception the fleet would otherwise absorb: one a
+    replica's scheduler step raises before the breaker counts it as a
+    replica failure (injected step faults raise at the step's fault point,
+    outside the scheduler), and one a KV migration raises before the fleet
+    falls back to recompute (an injected migration fault is a FaultInjected;
+    anything else, a card error in export, convert or import included, is
+    real)."""
+    from paddle_tpu_torch.distributed.resilience.fault_injection import FaultInjected
+
+    errors = []
+
+    def spied(orig, **where):
+        def call(*a, **k):
+            try:
+                return orig(*a, **k)
+            except Exception as e:
+                if not isinstance(e, FaultInjected):
+                    import traceback
+
+                    errors.append(dict(where, error=type(e).__name__,
+                                       trace=traceback.format_exc()[-1500:]))
+                raise
+        return call
+    for rep in fleet.replicas:
+        rep.sched.step = spied(rep.sched.step, replica=rep.idx)
+    fleet._migrate_request = spied(fleet._migrate_request, migration=True)
+    return errors
+
+
+def injected_faults(tl, prefix) -> list:
+    return [r["labels"]["site"] for r in tl.recorder().records()
+            if r["kind"] == "fault.injected" and r["labels"]["site"].startswith(prefix)]
+
+
+def hold_fleet_run(name, stats, fleet, tl, errors) -> dict:
+    """The checks every fleet run takes: no request lost or duplicated, no
+    real error in a replica step or a migration, no replica failure and no
+    migration fallback but the injected ones, no migration failure, every
+    injection observed on the timeline, no timeline event evicted, every
+    completed request at its full budget. Returns the run's fault
+    accounting."""
+    step_faults = injected_faults(tl, "fleet.replica_step.")
+    migrate_faults = injected_faults(tl, "fleet.kv_migrate.")
+    failures = [r for r in tl.recorder().records() if r["kind"] == "replica.failure"]
+    cov = tl.chaos_coverage()
+    bad = []
+    if errors:
+        bad.append(f"real errors in replica steps or migrations: {errors}")
+    if stats["lost"] or stats["duplicated"]:
+        bad.append(f"lost {stats['lost']} duplicated {stats['duplicated']}")
+    if stats["replica_failures"] != len(step_faults) or len(failures) != len(step_faults):
+        bad.append(f"replica_failures {stats['replica_failures']} != injected step faults "
+                   f"{len(step_faults)}")
+    if fleet.migration_failures or fleet.migration_fallbacks != len(migrate_faults):
+        bad.append(f"migration failures {fleet.migration_failures}, fallbacks "
+                   f"{fleet.migration_fallbacks} != injected migration faults {len(migrate_faults)}")
+    if cov["unobserved_faults"] or tl.dropped():
+        bad.append(f"unobserved faults {cov['unobserved_faults']}, dropped {tl.dropped()}")
+    for r in fleet.finished:  # a capped request's budget is its cap
+        got = len(r.prompt) - r.prompt_len + len(r.generated)
+        if r.outcome == "completed" and got != r.max_new_tokens:
+            bad.append(f"request {r.rid} generated {got} of {r.max_new_tokens}")
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    return dict(injected=cov["injected"], step_faults=len(step_faults),
+                migrate_faults=len(migrate_faults))
+
+
+def fleet_ids(fleet) -> dict:
+    return {r.rid: r.prompt[r.prompt_len:] + list(r.generated)
+            for r in fleet.finished if r.outcome == "completed"}
+
+
+def parting(model, prompts: dict, got: dict, want: dict, device, bound: float) -> list:
+    """Requests whose ids part from the oracle's: at the first step where they
+    part, the gap between the two tokens' logits in a no-cache forward of the
+    common prefix. A tie when the gap is at most `bound` (near_tie_rule):
+    where both runs' logits lie within E of that forward's, each run's
+    choice puts the gap within 2E, so batch makeup can flip it."""
+    out = []
+    for rid, g in got.items():
+        w = want[rid]
+        if g == w[:len(g)]:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        with torch.inference_mode():
+            ref = model(torch.tensor([prompts[rid] + g[:j]], device=device))[0, -1].float()
+        gap = abs(float(ref[g[j]] - ref[w[j]]))
+        norm = float(ref.norm())
+        out.append(dict(rid=rid, step=j, gap=gap, gap_over_rms=gap / (norm / math.sqrt(ref.numel())),
+                        tie=gap <= bound))
+    return out
+
+
+def near_tie_rule(model, state) -> dict:
+    """The parting rule's bounds. E is the largest |cached - recomputed| of
+    any one logit over 32 steps of one request: measured on a bf16 fleet
+    engine (decode bucket 4), on an int8-KV one, on the oracle's engine
+    (decode bucket 8) and by serve_bf16 (decode bucket 1); E_bf16 is the
+    largest of the bf16 ones. The oracle runs bf16, so a run whose requests
+    decode on bf16 pages is held to 2 E_bf16 and one with an int8 decode
+    tier to E_int8 + E_bf16 (at least 2 E_bf16). Then a planted wrong token (seeded,
+    at the first generated step) must fail the wider bound: a rule that no
+    wrong token fails checks nothing."""
+    from paddle_tpu_torch.inference import InferenceEngine
+
+    if "tie_rule" in state:
+        return state["tie_rule"]
+    vocab, dev = model.config["vocab_size"], next(model.parameters()).device
+    prompt = max((r.prompt for r in fleet_traffic(vocab)), key=len)
+    errs, rel = {}, {}
+    for name, kw in (("bfloat16", FLEET_ENGINE), ("int8", dict(FLEET_ENGINE, kv_dtype="int8")),
+                     ("oracle", dict(FLEET_ENGINE, max_batch=8, decode_batch_buckets=(8,)))):
+        eng = InferenceEngine(model, **kw)
+        rels, _, errs[name] = step_logits_error(eng, model, prompt)
+        rel[name] = max(rels)
+        del eng
+    if max(rel["bfloat16"], rel["oracle"]) > LOGIT_REL_BOUND:
+        raise AssertionError(f"fleet engines: cached vs recomputed logits rel err {rel} > "
+                             f"{LOGIT_REL_BOUND}")
+    e_bf16 = max(errs["bfloat16"], errs["oracle"], state.get("logit_elem_err", 0.0))
+    bound = dict(bf16=2.0 * e_bf16, int8=max(2.0 * e_bf16, errs["int8"] + e_bf16))
+    with torch.inference_mode():
+        want = int(model(torch.tensor([prompt], device=dev))[0, -1].argmax())
+    rng = np.random.RandomState(31)
+    bad = int(rng.randint(0, vocab))
+    while bad == want:
+        bad = int(rng.randint(0, vocab))
+    (planted,) = parting(model, {0: prompt}, {0: [bad]}, {0: [want]}, dev, bound["int8"])
+    if planted["tie"]:
+        raise AssertionError(f"the near-tie rule passes a planted wrong token: {planted}, "
+                             f"bounds {bound}")
+    state["tie_rule"] = dict(bound=bound, max_abs_logit_err=dict(
+        errs, serve_bf16=state.get("logit_elem_err")), engine_rel_err=rel, planted=planted)
+    return state["tie_rule"]
+
+
+def fleet_kernel_checks(ta) -> list:
+    """B1 and B4 against their plain versions at the shapes the fleet path
+    gives them: every prefill bucket of FLEET_ENGINE (B1 H32/8 D128 bf16
+    causal), and a decode step of the 4-row bucket over a 32-page table (a
+    full 512-token row, two partial rows, an idle slot) on bf16 and int8
+    pages. These launches are not counted: every fleet run sets the counts
+    to 0 before it."""
+    from paddle_tpu_torch.inference.engine import _default_prefill_buckets
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf, seq, bs = torch.bfloat16, FLEET_ENGINE["max_seq_len"], FLEET_ENGINE["block_size"]
+    recs = [check_flash(ta, gen, f"bf16 causal B1 S{s} H32/8 D128 (fleet prefill bucket)", 1, s, s,
+                        32, 8, 128, bf, True)
+            for s in _default_prefill_buckets(seq, bs)]
+    ctx = [seq, 300, 17, 1]
+    for kv, note in ((None, "bf16"), (torch.int8, "int8 pages")):
+        recs.append(check_paged(ta, gen, f"decode Q1 B4 ctx {'/'.join(map(str, ctx))} bs{bs} "
+                                f"{note} (fleet decode)", 1, kv, ctx=ctx, max_seq=seq))
+    return [{k: r[k] for k in ("case", "max_abs_err")} for r in recs]
+
+
+def counted_run(ta, engines, run):
+    """Drive `run()` with every launch and step count at 0 first; return its
+    result, the launches and the steps summed over `engines`, and check the
+    launches are exact: the flash kernel once a layer a prefill, the paged
+    kernel once a layer a decode or extend step."""
+    ta.reset_launch_counts()
+    for e in engines:
+        e.step_counts = dict.fromkeys(e.step_counts, 0)
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(ta.LAUNCHES)
+    steps = {k: sum(e.step_counts[k] for e in engines) for k in engines[0].step_counts}
+    L = engines[0].num_layers
+    if not (launches["flash_fwd"] == L * steps["prefill"]
+            and launches["paged_attn"] == L * (steps["decode"] + steps["extend"])):
+        raise AssertionError(f"fleet launches {launches} do not match steps {steps} x {L} layers")
+    return out, launches, steps
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+
+
+def fleet_parity_runs(ptt, model, clock_step=0.0005):
+    """The three fleet scenarios on `model` (on `dev`): a replica kill mid-
+    decode, a hot swap mid-replay and a tiered fleet (int8 decode tier) with
+    a migration fault, each on an injected clock. Returns per scenario the
+    decisions, ids, migration CRCs and the engines."""
+    from paddle_tpu_torch.distributed.resilience import fault_injection as fi
+    from paddle_tpu_torch.inference import InferenceEngine, ReplicaFleet, Request, fleet_replay
+    from paddle_tpu_torch.inference import kv_cache as kvc
+
+    vocab = model.config["vocab_size"]
+    engine = dict(max_seq_len=64, block_size=8, max_batch=4, decode_batch_buckets=(4,))
+
+    def clock():
+        t = [0.0]
+
+        def tick():
+            t[0] += clock_step
+            return t[0]
+        return tick
+
+    def reqs():
+        rng = np.random.RandomState(21)
+        out, t = [], 0.0
+        for i in range(12):
+            t += rng.exponential(0.002)
+            out.append(Request(rid=i, prompt=rng.randint(0, vocab, (int(rng.randint(3, 20)),)).tolist(),
+                               max_new_tokens=int(rng.choice([3, 8, 16])), arrival_time=t))
+        return out
+
+    crcs = []
+    real_crcs = kvc.payload_page_crcs
+
+    def recording_crcs(payload):
+        out = real_crcs(payload)
+        crcs.append(out)
+        return out
+
+    def record(fleet):
+        return dict(
+            requests=[(r.rid, r.outcome, r.preemptions, r.cached_tokens, r.first_token_time,
+                       r.finish_time) for r in fleet.finished],
+            ids=fleet_ids(fleet), evacuated=fleet.evacuated_total, failures=fleet.failures_total,
+            swaps=fleet.swaps_completed, migrations=fleet.migrations_total,
+            fallbacks=fleet.migration_fallbacks, crc_rejects=fleet.migration_crc_rejects,
+            mode=fleet.mode(), status=[r.status for r in fleet.replicas],
+            versions=[r.engine.weights_version for r in fleet.replicas],
+            routes=sorted((s["labels"]["reason"], s["value"]) for s in ptt.telemetry.default_registry().collect()
+                          if s["name"] == "paddle_tpu_fleet_routed_total"))
+
+    swap_state = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    kvc.payload_page_crcs = recording_crcs
+    try:
+        for name in ("kill_mid_decode", "swap_mid_replay", "tiered_migration_fault"):
+            ptt.telemetry.default_registry().unregister("paddle_tpu_fleet_routed_total")
+            crcs.clear()
+            fi.clear_plan()
+            if name == "tiered_migration_fault":
+                engines = [InferenceEngine(model, **engine),
+                           InferenceEngine(model, kv_dtype="int8", **engine)]
+                fleet = ReplicaFleet(engines, clock=clock(), tiers=("prefill", "decode"))
+                fi.install_plan(fi.FaultPlan().add("fleet.kv_migrate.*", "fail", times=2))
+                events = []
+            else:
+                engines = [InferenceEngine(model, **engine) for _ in range(2)]
+                fleet = ReplicaFleet(engines, clock=clock())
+                if name == "kill_mid_decode":
+                    events = [(3, lambda: fi.install_plan(
+                        fi.FaultPlan().add("fleet.replica_step.1", "fail", times=2)))]
+                else:
+                    events = [(3, lambda f=fleet: f.request_swap(swap_state))]
+            try:
+                fleet_replay(fleet, reqs(), events=events)
+            finally:
+                fi.clear_plan()
+            out[name] = dict(record(fleet), crcs=list(crcs), engines=engines)
+    finally:
+        kvc.payload_page_crcs = real_crcs
+    return out
+
+
+def fleet_parity(ptt, ta, state, card="cuda"):
+    """The tiny f32 Llama's fleet on the card (kernels) and on the CPU
+    (plain versions), deterministic algorithms on, the same clock and
+    FaultPlans: decisions and greedy ids equal."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.filterwarnings("ignore", message=".*deterministic.*")
+    try:
+        ptt.seed(3)
+        cpu = LlamaForCausalLM(**TINY_LLAMA, device="cpu", dtype="float32").eval()
+        model = LlamaForCausalLM(**TINY_LLAMA, device="meta", dtype="float32")
+        model.load_state_dict({k: v.to(card) for k, v in cpu.state_dict().items()}, assign=True)
+        model.eval()
+        ta.reset_launch_counts()
+        got = fleet_parity_runs(ptt, model)
+        torch.cuda.synchronize()
+        launches = dict(ta.LAUNCHES)
+        want = fleet_parity_runs(ptt, cpu)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    steps = {}
+    for rec in got.values():
+        for e in rec["engines"]:
+            for k, v in e.step_counts.items():
+                steps[k] = steps.get(k, 0) + v
+    L = TINY_LLAMA["num_hidden_layers"]
+    if not (launches["flash_fwd"] == L * steps["prefill"] > 0
+            and launches["paged_attn"] == L * (steps["decode"] + steps["extend"]) > 0):
+        raise AssertionError(f"fleet_parity: launches {launches} do not match steps {steps}")
+    keys = ("requests", "ids", "evacuated", "failures", "swaps", "migrations", "fallbacks",
+            "crc_rejects", "mode", "status", "versions", "routes")
+    summary = {}
+    for name, g in got.items():
+        w = want[name]
+        diff = [k for k in keys if g[k] != w[k]]
+        if diff:
+            raise AssertionError(f"fleet_parity {name}: card and CPU differ in {diff}: "
+                                 f"{ {k: (g[k], w[k]) for k in diff} }")
+        # every migration's sender CRCs equal its readback's on each device
+        for dev, rec in (("card", g), ("cpu", w)):
+            pairs = list(zip(rec["crcs"][0::2], rec["crcs"][1::2]))
+            if any(a != b for a, b in pairs):
+                raise AssertionError(f"fleet_parity {name}: a {dev} migration's readback CRC differs")
+        page_crcs = [c for pair in g["crcs"][0::2] for c in pair]
+        cpu_crcs = [c for pair in w["crcs"][0::2] for c in pair]
+        summary[name] = dict(
+            evacuated=g["evacuated"], failures=g["failures"], swaps=g["swaps"],
+            migrations=g["migrations"], fallbacks=g["fallbacks"], mode=g["mode"],
+            routes=g["routes"], migrated_pages=len(page_crcs),
+            page_crcs_equal_to_cpu=sum(a == b for a, b in zip(page_crcs, cpu_crcs)),
+            tokens=sum(len(v) for v in g["ids"].values()))
+    if got["kill_mid_decode"]["evacuated"] == 0 or got["tiered_migration_fault"]["fallbacks"] != 2 \
+            or got["swap_mid_replay"]["swaps"] != 1:
+        raise AssertionError(f"fleet_parity: a scenario missed its path: {summary}")
+    state["fleet_parity_launches"] = launches
+    log("fleet_parity", layers=L, head_dim=TINY_LLAMA["hidden_size"] // TINY_LLAMA["num_attention_heads"],
+        decisions_and_ids_equal=True, launches=launches, steps=steps, scenarios=summary)
+
+
+def fleet_bf16(ptt, ta, model, state, widths=(1, 2, 4)):
+    """bench.py's _build_fleet at Llama-3-8B width on the card (see the
+    module docstring)."""
+    from paddle_tpu_torch.distributed.resilience import fault_injection as fi
+    from paddle_tpu_torch.inference import InferenceEngine, ReplicaFleet, fleet_replay
+    from paddle_tpu_torch.inference import kv_cache as kvc
+    from paddle_tpu_torch.telemetry import request_trace as rt
+    from paddle_tpu_torch.telemetry import timeline as tl
+
+    vocab, dev = model.config["vocab_size"], next(model.parameters()).device
+
+    def fresh_engine(kv_dtype=None):
+        eng = InferenceEngine(model, kv_dtype=kv_dtype, **FLEET_ENGINE)
+        eng.prewarm()  # every bucket once: cuBLAS handles and kernel loads off the replay
+        return eng
+
+    kernel_cases = fleet_kernel_checks(ta)
+    tie = near_tie_rule(model, state)
+    ptt.set_flags({"FLAGS_incident_timeline": True})
+    total_launches, per_width, slo, runs = {}, {}, {}, {}
+    captured = MigrationCapture()
+    try:
+        # the single-engine oracle of every prompt (no fleet)
+        oracle_eng = InferenceEngine(model, **dict(FLEET_ENGINE, max_batch=8,
+                                                   decode_batch_buckets=(8,)))
+        traffic = {r.rid: r for r in fleet_traffic(vocab)}
+        oracle = dict(zip(traffic, oracle_eng.generate(
+            [r.prompt for r in traffic.values()], [r.max_new_tokens for r in traffic.values()])))
+        del oracle_eng
+        widest = max(widths)
+        model_sum = weights_checksum(model.state_dict(keep_vars=True))
+        for n in widths:
+            tl.reset()
+            engines = [fresh_engine() for _ in range(n)]
+            fleet = ReplicaFleet(engines)
+            errors = spy_real_errors(fleet)
+            events, split = [], {}
+            chaos = n == widest
+            if chaos:
+                copy = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                events.append((max(1, int(0.3 * 32)), lambda f=fleet: f.request_swap(copy)))
+                if n > 1:
+                    events.append((max(2, int(0.6 * 32)), lambda idx=n - 1: fi.install_plan(
+                        fi.FaultPlan().add(f"fleet.replica_step.{idx}", "fail", times=2))))
+                ptt.telemetry.default_registry().unregister("paddle_tpu_fleet_weights_version")
+                watch_rollout(fleet, model, model_sum, split)
+                rt.reset()
+                ptt.set_flags({"FLAGS_request_trace": True})
+            gc.collect()
+            try:
+                stats, launches, steps = counted_run(
+                    ta, engines, lambda: fleet_replay(fleet, fleet_traffic(vocab), events=events))
+            finally:
+                fi.clear_plan()
+                if chaos:
+                    ptt.set_flags({"FLAGS_request_trace": False})
+            faults = hold_fleet_run(f"fleet_bf16 width {n}", stats, fleet, tl, errors)
+            add_launches(total_launches, launches)
+            ids = fleet_ids(fleet)
+            parts = parting(model, {k: r.prompt for k, r in traffic.items()}, ids, oracle, dev,
+                            tie["bound"]["bf16"])
+            if not all(p["tie"] for p in parts):
+                raise AssertionError(f"fleet_bf16 width {n}: ids part from the oracle off a tie: "
+                                     f"{[p for p in parts if not p['tie']]}")
+            if chaos:
+                slo[f"width_{n}"] = rt.slo_breakdown(**FLEET_SLO)
+                if stats["swaps_completed"] != 1 or (n > 1 and not split):
+                    raise AssertionError(f"fleet_bf16: the rollout did not run as asked "
+                                         f"({stats['swaps_completed']} swaps, split {split})")
+            events = copy = None  # the swap's weight copy goes with the run
+            per_width[str(n)] = dict(
+                {k: stats.get(k) for k in ("tokens_per_sec", "p50_ttft_ms", "p99_ttft_ms",
+                                            "p50_tpot_ms", "p99_tpot_ms", "completed", "evacuated",
+                                            "replica_failures", "preempted", "swaps_completed",
+                                            "p99_tpot_swap_ms", "wall_s", "generated_tokens")},
+                steps=steps, steps_by_replica=[sum(e.step_counts.values()) for e in engines],
+                launches=launches, injected_step_faults=faults["step_faults"],
+                parted=len(parts), parting=parts[:4], rollout_split=split or None)
+            del fleet, engines
+        # ---- the burst A/B: untiered 2 replicas against 1 prefill + 1 int8 decode ----
+        burst = {r.rid: r for r in burst_traffic(vocab)}
+        oracle_eng = InferenceEngine(model, **dict(FLEET_ENGINE, max_batch=8,
+                                                   decode_batch_buckets=(8,)))
+        burst_oracle = dict(zip(burst, oracle_eng.generate(
+            [r.prompt for r in burst.values()], [r.max_new_tokens for r in burst.values()])))
+        del oracle_eng
+        for name in ("untiered", "tiered", "tiered_chaos"):
+            tl.reset()
+            if name == "untiered":
+                engines = [fresh_engine(), fresh_engine()]
+                fleet = ReplicaFleet(engines, prefix_owner_cache_size=1)
+            else:
+                engines = [fresh_engine(), fresh_engine("int8")]
+                fleet = ReplicaFleet(engines, tiers=("prefill", "decode"))
+                fleet.prewarm()
+                captured.attach(fleet, on=(name == "tiered"))
+            errors = spy_real_errors(fleet)
+            events = []
+            if name == "tiered_chaos":
+                events = [(max(1, int(0.25 * 16)), lambda: fi.install_plan(
+                              fi.FaultPlan().add("fleet.kv_migrate.*", "fail", times=2))),
+                          (max(2, int(0.6 * 16)), lambda: fi.install_plan(
+                              fi.FaultPlan().add("fleet.replica_step.1", "fail", times=2)))]
+                rt.reset()
+                ptt.set_flags({"FLAGS_request_trace": True})
+            gc.collect()
+            try:
+                stats, launches, steps = counted_run(
+                    ta, engines, lambda: fleet_replay(fleet, burst_traffic(vocab), events=events))
+            finally:
+                fi.clear_plan()
+                if name == "tiered_chaos":
+                    ptt.set_flags({"FLAGS_request_trace": False})
+            faults = hold_fleet_run(f"fleet_bf16 burst {name}", stats, fleet, tl, errors)
+            add_launches(total_launches, launches)
+            ids = fleet_ids(fleet)
+            parts = parting(model, {k: r.prompt for k, r in burst.items()}, ids, burst_oracle, dev,
+                            tie["bound"]["bf16" if name == "untiered" else "int8"])
+            if not all(p["tie"] for p in parts):
+                raise AssertionError(f"fleet_bf16 burst {name}: ids part from the oracle off a "
+                                     f"tie: {[p for p in parts if not p['tie']]}")
+            if name == "tiered_chaos":
+                slo["burst_tiered_chaos"] = rt.slo_breakdown(**FLEET_SLO)
+            runs[name] = dict(
+                {k: stats.get(k) for k in ("p50_ttft_ms", "p99_ttft_ms", "p50_tpot_ms",
+                                            "p99_tpot_ms", "tokens_per_sec", "completed",
+                                            "migrations", "migration_fallbacks",
+                                            "migration_failures", "migration_deferred",
+                                            "crc_rejects", "prefix_routed", "evacuated",
+                                            "replica_failures", "wall_s")},
+                hit_rate=hit_rate(fleet), mode=fleet.mode(), steps=steps, launches=launches,
+                injected_faults=faults["injected"], parted=len(parts), parting=parts[:4],
+                migration_ms_per_page=(fleet.migration_wall_s * 1e3 / fleet.migrated_pages_total
+                                       if fleet.migrated_pages_total else None),
+                migrated_pages=fleet.migrated_pages_total)
+            if name == "tiered":
+                check_int8_migration(model, burst, captured)
+                runs[name]["int8_pages_equal_quantize_on_write"] = captured.checked
+            del fleet, engines
+    finally:
+        captured.detach()
+        ptt.set_flags({"FLAGS_incident_timeline": False})
+        gc.collect()
+        torch.cuda.empty_cache()
+    t = runs["tiered"]
+    if t["migration_failures"] or t["hit_rate"] < runs["untiered"]["hit_rate"]:
+        raise AssertionError(f"fleet_bf16: the clean tiered run failed migrations or lost hits: "
+                             f"{t}, untiered hit rate {runs['untiered']['hit_rate']}")
+    if runs["tiered_chaos"]["migration_fallbacks"] < 1 or runs["tiered_chaos"]["mode"] != "monolithic":
+        raise AssertionError(f"fleet_bf16: the chaos run missed its faults: {runs['tiered_chaos']}")
+    state["fleet_launches"] = total_launches
+    log("fleet_bf16", layers=model.config["num_hidden_layers"], engine=FLEET_ENGINE,
+        widths=per_width, note="the replicas share one card and step one after another: a "
+        "wider fleet interleaves host work, it adds no device", launches=total_launches,
+        near_tie_rule=tie, kernels_at_fleet_shapes=kernel_cases)
+    log("fleet_bf16 burst", **runs)
+    log("fleet_bf16 slo_breakdown", **slo)
+
+
+def weights_checksum(params: dict) -> float:
+    """One number over every tensor (float64 sum of per-tensor f32 sums)."""
+    with torch.no_grad():
+        return float(torch.stack([p.detach().float().sum() for p in params.values()]).double().sum())
+
+
+def watch_rollout(fleet, model, model_sum, split: dict) -> None:
+    """Wrap fleet.step: at the first tick where the replicas hold two weight
+    versions, check that every replica not yet swapped still runs on the
+    model's own tensors (the same storage and checksum) and record the
+    paddle_tpu_fleet_weights_version gauge there."""
+    import paddle_tpu_torch as ptt
+
+    step = fleet.step
+    own = dict(model.state_dict(keep_vars=True))
+
+    def watched():
+        out = step()
+        live = [r for r in fleet.replicas if r.status != "down"]
+        versions = [r.engine.weights_version for r in fleet.replicas]
+        if not split and len({r.engine.weights_version for r in live}) > 1:
+            old = [r for r in live if r.engine.weights_version == 0]
+            same = all(r.engine.params[k] is v and r.engine.params[k].data_ptr() == v.data_ptr()
+                       for r in old for k, v in own.items())
+            sums = [weights_checksum(r.engine.params) for r in old]
+            gauge = {s["labels"]["replica"]: s["value"] for s in ptt.telemetry.default_registry().collect()
+                     if s["name"] == "paddle_tpu_fleet_weights_version"}
+            if not same or any(s != model_sum for s in sums) or \
+                    any(gauge.get(str(r.idx)) != 1 for r in live if r.engine.weights_version == 1):
+                raise AssertionError(f"fleet_bf16: mid-rollout an unswapped replica lost its "
+                                     f"weights, or the gauge does not show the split: same {same}, "
+                                     f"sums {sums} vs {model_sum}, gauge {gauge}")
+            split.update(versions=versions, gauge=gauge, unswapped_same_storage=same,
+                         unswapped_checksum_equal=True)
+        return out
+    fleet.step = watched
+
+
+class MigrationCapture:
+    """Keep the converted payload of every migration of one fleet (the
+    decode tier's int8 pages) beside the request it moved."""
+
+    def __init__(self):
+        from paddle_tpu_torch.inference import kv_cache as kvc
+
+        self.kvc, self.real = kvc, kvc.import_pages
+        self.payloads, self.rid, self.on, self.checked = {}, None, False, None
+
+        def importing(pool, pages, payload):
+            if self.on and self.rid is not None and self.rid not in self.payloads:
+                self.payloads[self.rid] = payload
+            return self.real(pool, pages, payload)
+        kvc.import_pages = importing
+
+    def attach(self, fleet, on):
+        self.on = on
+        migrate = fleet._migrate_request
+
+        def tagged(src, dst, req):
+            self.rid = req.rid
+            try:
+                return migrate(src, dst, req)
+            finally:
+                self.rid = None
+        fleet._migrate_request = tagged
+
+    def detach(self):
+        self.kvc.import_pages = self.real
+
+
+def check_int8_migration(model, burst: dict, captured) -> None:
+    """The int8 pages a migration wrote equal, byte for byte, what an int8
+    engine writes when it prefills the same prompt itself, over every slot a
+    bucketed prefill wrote: request 0's whole prompt (it arrived at an idle
+    fleet) and the shared prefix's pages of every later request (served from
+    request 0's pages)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.inference import kv_cache as kvc
+
+    if 0 not in captured.payloads:
+        raise AssertionError("fleet_bf16: request 0 did not migrate in the clean tiered run")
+    prompt0 = burst[0].prompt
+    eng = InferenceEngine(model, kv_dtype="int8", **FLEET_ENGINE)
+    pages = eng.pool.alloc(eng.pool.blocks_for_tokens(len(prompt0)))
+    eng.prefill(prompt0, pages)
+    want = kvc.export_pages(eng.pool, pages)
+    bs = FLEET_ENGINE["block_size"]
+    slots = 0
+    for rid, payload in captured.payloads.items():
+        n = len(prompt0) if rid == 0 else 2 * bs  # the shared prefix is 2 pages
+        for key in ("k", "v", "k_scale", "v_scale"):
+            for got, ref in zip(payload[key], want[key]):
+                g = got.reshape(-1, *got.shape[2:])[:n]
+                w = ref.reshape(-1, *ref.shape[2:])[:n]
+                if g.tobytes() != w.tobytes():
+                    raise AssertionError(f"fleet_bf16: request {rid}'s migrated {key} pages differ "
+                                         f"from an int8 engine's own prefill")
+        slots += n
+    captured.checked = dict(requests=len(captured.payloads), slots=slots)
+
+
+def qos_traffic(vocab, seed=17, n=36, gap_s=0.04):
+    """Two warm-up requests (one a replica, so both measure a step before the
+    burst), then `n` requests over two tenants and three classes, arriving
+    faster than two replicas serve them for ~1.5 s: the waiting lines stay
+    full, which holds the pressure up and the token buckets overrun."""
+    from paddle_tpu_torch.inference import Request
+
+    rng = np.random.RandomState(seed)
+    reqs = [Request(rid=i, prompt=rng.randint(0, vocab, (16,)).tolist(), max_new_tokens=4,
+                    tenant="gold", priority=0) for i in range(2)]
+    t = 0.3
+    for i in range(2, 2 + n):
+        t += rng.exponential(gap_s)
+        tenant = "gold" if i % 2 == 0 else "bronze"
+        prio = (0 if i % 4 == 0 else 1) if tenant == "gold" else 2
+        reqs.append(Request(rid=i, prompt=rng.randint(0, vocab, (int(rng.randint(48, 96)),)).tolist(),
+                            max_new_tokens=int(rng.choice([16, 24, 32])), arrival_time=t,
+                            tenant=tenant, priority=prio))
+    return reqs
+
+
+def qos_tail(vocab, seed=18):
+    """Four priority-0 requests submitted once the burst has ended: their
+    steps read the falling pressure that unwinds the ladder."""
+    from paddle_tpu_torch.inference import Request
+
+    rng = np.random.RandomState(seed)
+    return [Request(rid=100 + i, prompt=rng.randint(0, vocab, (24,)).tolist(), max_new_tokens=40,
+                    tenant="gold", priority=0) for i in range(4)]
+
+
+def qos_bf16(ptt, ta, model, state):
+    """The 2-replica fleet at Llama-3-8B width with one shared QoSPolicy
+    (see the module docstring)."""
+    from paddle_tpu_torch.inference import (BrownoutConfig, InferenceEngine, QoSConfig,
+                                            QoSPolicy, ReplicaFleet, TenantConfig, fleet_replay)
+    from paddle_tpu_torch.inference.qos import tenant_report
+    from paddle_tpu_torch.telemetry import timeline as tl
+
+    vocab, dev = model.config["vocab_size"], next(model.parameters()).device
+    cfg = QoSConfig(
+        tenants={"gold": TenantConfig(weight=3.0, rate_tokens_per_s=600.0, burst_tokens=600.0),
+                 "bronze": TenantConfig(weight=1.0, rate_tokens_per_s=300.0, burst_tokens=300.0)},
+        max_waiting=4,
+        brownout=BrownoutConfig(enter_pressure=0.8, exit_pressure=0.5, cooldown_s=0.15,
+                                capped_max_new=8, low_priority=2))
+    engine = dict(FLEET_ENGINE, num_blocks=36)  # 35 pages: 4 running requests fill 80% of it
+
+    def fleet_of(qos):
+        engines = [InferenceEngine(model, **engine) for _ in range(2)]
+        for e in engines:
+            e.prewarm()
+        return engines, ReplicaFleet(engines, qos=qos)
+
+    pol = QoSPolicy(cfg)
+    engines, fleet = fleet_of(pol)
+    qos_s = [0.0]
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                qos_s[0] += time.perf_counter() - t0
+        return run
+    sched_steps = [0]
+    for rep in fleet.replicas:
+        s = rep.sched
+        for name in ("_qos_pre_step", "_qos_submit_gate", "_qos_on_admit", "_qos_priority_preempt"):
+            setattr(s, name, timed(getattr(s, name)))
+        step = s.step
+
+        def counted(step=step):
+            sched_steps[0] += 1
+            return step()
+        s.step = counted
+    pol.select, pol.charge = timed(pol.select), timed(pol.charge)
+    errors = spy_real_errors(fleet)
+    tail = qos_tail(vocab)
+    burst = qos_traffic(vocab)
+    ptt.set_flags({"FLAGS_incident_timeline": True})
+    tl.reset()
+    try:
+        # the tail is submitted once every burst request has ended
+        stats, launches, steps = counted_run(ta, engines, lambda: fleet_replay(
+            fleet, burst, events=[(len(burst), lambda: [fleet.submit(r) for r in tail])]))
+        hold_fleet_run("qos_bf16", stats, fleet, tl, errors)
+        rungs = sorted({r["payload"]["step"] for r in tl.recorder().records() if r["kind"] == "brownout"})
+    finally:
+        ptt.set_flags({"FLAGS_incident_timeline": False})
+    # every request ends completed or shed, a shed one with a reason and a hint
+    bad = [(r.rid, r.outcome, r.shed_reason, r.retry_after_s) for r in fleet.finished
+           if r.outcome not in ("completed", "shed")
+           or (r.outcome == "shed" and (r.shed_reason is None or r.retry_after_s is None))]
+    if bad or len(fleet.finished) != len(burst) + len(tail):
+        raise AssertionError(f"qos_bf16: requests ended otherwise: {bad}")
+    if pol.brownout.step != 0 or max(rungs, default=0) < 2:
+        raise AssertionError(f"qos_bf16: the ladder visited {rungs} and ended at "
+                             f"{pol.brownout.step}, not back at 0 after reaching 2")
+    # the oracle of the ids: the same requests without QoS (uncapped), one engine
+    every = {r.rid: r for r in qos_traffic(vocab) + qos_tail(vocab)}
+    done = {r.rid: r for r in fleet.finished if r.outcome == "completed"}
+    p0 = {rid: fleet_ids(fleet)[rid] for rid, r in done.items() if r.priority == 0}
+    capped = {rid: fleet_ids(fleet)[rid] for rid, r in done.items() if r.qos_orig_max_new is not None}
+    held = sorted({**p0, **capped})
+    oracle = InferenceEngine(model, **dict(FLEET_ENGINE, max_batch=8, decode_batch_buckets=(8,)))
+    uncapped = dict(zip(held, oracle.generate([every[rid].prompt for rid in held],
+                                              [every[rid].max_new_tokens for rid in held])))
+    del oracle
+    parts = parting(model, {rid: r.prompt for rid, r in every.items()}, {**p0, **capped},
+                    uncapped, dev, near_tie_rule(model, state)["bound"]["bf16"])
+    if not all(p["tie"] for p in parts):
+        raise AssertionError(f"qos_bf16: ids part from the no-QoS run off a tie: {parts}")
+    report = tenant_report(fleet.finished, cfg)
+    state["qos_launches"] = launches
+    log("qos_bf16", replicas=2, engine=engine, requests=len(fleet.finished),
+        completed=len(done), shed_by_reason=dict(pol.shed_counts), rungs_visited=rungs,
+        transitions=pol.brownout.transitions, capped=len(capped), priority0_completed=len(p0),
+        parted=len(parts), parting=parts[:4], fairness_index=report["fairness_index"],
+        tenants={t: {k: v for k, v in d.items()} for t, d in report["tenants"].items()},
+        qos_host_us_per_step=qos_s[0] * 1e6 / max(1, sched_steps[0]), scheduler_steps=sched_steps[0],
+        p99_ttft_ms=stats["p99_ttft_ms"], p99_tpot_ms=stats["p99_tpot_ms"],
+        launches=launches, steps=steps)
+
+
+def qos_predictor(ptt, dev="cuda"):
+    """create_predictor with enable_llm_engine(llm_replicas=2, qos=QoSConfig)
+    at predictor_f32's 1-layer f32 size: ids equal the single-replica
+    predictor's."""
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ptt.seed(1)
+    model = LlamaForCausalLM(**dict(LLAMA3_8B, num_hidden_layers=1), device=dev,
+                             dtype="float32").eval()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    rng = np.random.RandomState(2)
+    lens = np.asarray([5, 17, 33, 64])
+    ids = np.zeros((4, int(lens.max())), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.randint(0, LLAMA3_8B["vocab_size"], n)
+    outs = []
+    try:
+        prefix = inf.save_llm(model, os.path.join(tmp, "llama3_8b_1layer"))
+        for replicas, qos in ((1, None), (2, inf.QoSConfig(max_waiting=8))):
+            config = inf.Config(prefix)
+            if dev == "cpu":
+                config.disable_gpu()
+            config.enable_llm_engine(max_new_tokens=8, max_seq_len=256, block_size=16, max_batch=4,
+                                     llm_replicas=replicas, qos=qos)
+            pred = inf.create_predictor(config)
+            outs.append((pred.run([ids, lens])[0], pred))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (single, _), (fleet_out, pred) = outs
+    if not np.array_equal(single, fleet_out) or len(pred.fleet().replicas) != 2 or pred.qos() is None:
+        raise AssertionError(f"qos_bf16 predictor: fleet-backed ids {fleet_out.tolist()} != "
+                             f"single-replica {single.tolist()}")
+    log("qos_bf16 predictor", replicas=2, qos=True, ids_equal_single_replica=True,
+        steps_by_replica=[dict(r.engine.step_counts) for r in pred.fleet().replicas])
+
+
+def telemetry_ab(ptt, model, steps=48):
+    """The host cost of telemetry, request traces and the incident timeline
+    on serve_bf16's path, measured in pairs so the host's drift between
+    windows cancels: (1) the engine's decode step (8 rows at ~1000 tokens of
+    context) with the flags on and off in alternate steps; (2) two identical
+    schedulers over one engine (8 requests each, prompts of equal lengths,
+    distinct tokens), one with everything on (its requests traced), one with
+    everything off, stepped in turns; twice, each side first once."""
+    from paddle_tpu_torch.inference import ContinuousBatchingScheduler, InferenceEngine, Request
+
+    engine = InferenceEngine(model, max_seq_len=2048, block_size=16, max_batch=8)
+    prompts = [p[:64] for p in serve_prompts()[2:]]
+    vocab = model.config["vocab_size"]
+    flags = ("PADDLE_TPU_TELEMETRY", "FLAGS_request_trace", "FLAGS_incident_timeline")
+    mode = lambda on: ptt.set_flags({f: on for f in flags})  # noqa: E731
+
+    def paired(times):
+        d = [a - b for a, b in zip(times[True], times[False])]
+        return dict(on_ms=float(np.median(times[True])), off_ms=float(np.median(times[False])),
+                    on_minus_off_median_ms=float(np.median(d)),
+                    on_minus_off_iqr_ms=[float(np.percentile(d, 25)), float(np.percentile(d, 75))],
+                    pairs=len(d))
+
+    out = {}
+    try:
+        pool = engine.pool
+        pool.reset()
+        rows = [pool.alloc(pool.blocks_for_tokens(1000 + 2 * steps + 2)) for _ in range(8)]
+        times = {True: [], False: []}
+        for i in range(2 * steps + 2):
+            on = i % 2 == 0
+            mode(on)
+            t0 = time.perf_counter()
+            engine.decode([1] * 8, [1000 + i] * 8, [1001 + i] * 8, rows)  # ends in a host read
+            if i >= 2:
+                times[on].append((time.perf_counter() - t0) * 1e3)
+        out["decode_step"] = paired(times)
+        for first_on in (True, False):
+            pool.reset()
+            scheds, times = {}, {True: [], False: []}
+            for on in (True, False):
+                mode(on)  # the on side's requests are traced from submit
+                scheds[on] = ContinuousBatchingScheduler(engine)
+                for i, p in enumerate(prompts * 2):
+                    toks = p if on else [(t + 1) % vocab for t in p]
+                    scheds[on].submit(Request(rid=i, prompt=toks, max_new_tokens=40))
+            while not all(s.idle() for s in scheds.values()):
+                for on in (first_on, not first_on):
+                    if scheds[on].idle():
+                        continue
+                    mode(on)
+                    t0 = time.perf_counter()
+                    scheds[on].step()
+                    times[on].append((time.perf_counter() - t0) * 1e3)
+            n = min(len(times[True]), len(times[False]))
+            out[f"scheduler_step_{'on' if first_on else 'off'}_first"] = paired(
+                {k: v[:n] for k, v in times.items()})
+    finally:
+        ptt.set_flags({"PADDLE_TPU_TELEMETRY": True, "FLAGS_request_trace": False,
+                       "FLAGS_incident_timeline": False})
+        engine.pool.reset()
+    log("telemetry_ab", **out)
 
 
 # ---------------------------------------------------------------------------
@@ -3720,7 +4613,8 @@ def transformer_base(ptt, ta, state):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,predictor_f32,"
+    ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
+                                        "fleet_parity,fleet_bf16,qos_bf16,predictor_f32,"
                                         "train_parity,train_bf16,train_recompute,"
                                         "train_fp16_scaler,train_o2_resume,amp_parity,"
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
@@ -3882,6 +4776,15 @@ def main(argv=None) -> int:
         model = serve_bf16(ptt, ta, state)
         if "serve_int8" in phases:
             serve_int8(ta, model, state)
+        if "telemetry_ab" in phases:
+            telemetry_ab(ptt, model)
+        if "fleet_parity" in phases:
+            fleet_parity(ptt, ta, state)
+        if "fleet_bf16" in phases:
+            fleet_bf16(ptt, ta, model, state)
+        if "qos_bf16" in phases:
+            qos_bf16(ptt, ta, model, state)
+            qos_predictor(ptt)
         del model
         torch.cuda.empty_cache()
     if "predictor_f32" in phases:
@@ -3946,7 +4849,10 @@ def main(argv=None) -> int:
         "fused_adamw": (k + "fused_adamw.cu", "paddle_tpu/ops/fused_optimizer.py:140"),
         "rms_norm": (k + "rms_norm.cu", "paddle_tpu/incubate/nn/functional/__init__.py:67"),
     }
-    by_path = {"serve_bf16": state.get("launches", {}), "train_bf16": state.get("train_launches", {}),
+    by_path = {"serve_bf16": state.get("launches", {}),
+               "fleet_parity": state.get("fleet_parity_launches", {}),
+               "fleet_bf16": state.get("fleet_launches", {}), "qos_bf16": state.get("qos_launches", {}),
+               "train_bf16": state.get("train_launches", {}),
                "train_recompute": state.get("recompute_launches", {}),
                # its flash launches are the float16 rows' (below)
                "train_fp16_scaler": {k: v for k, v in state.get("fp16_launches", {}).items()

@@ -19,6 +19,12 @@ CUDA use.
     engine = paddle.inference.InferenceEngine(model.eval(), max_seq_len=2048)
     ids = engine.generate(prompts, max_new_tokens=32)
 
+    # a replica fleet with QoS, hot swaps and prefill/decode tiers; telemetry
+    fleet = paddle.inference.ReplicaFleet([engine, paddle.inference.InferenceEngine(model)],
+                                          qos=paddle.inference.QoSPolicy())
+    stats = paddle.inference.fleet_replay(fleet, requests)
+    text = paddle.telemetry.to_prometheus()
+
     # training
     paddle.set_flags({"FLAGS_fused_optimizer": True})
     opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
@@ -88,7 +94,7 @@ mask.
 import torch
 
 from . import (amp, core, device, distributed, framework, incubate, inference, jit, models, nn,
-               ops, optimizer, quantization, regularizer, utils, vision)
+               ops, optimizer, quantization, regularizer, telemetry, utils, vision)
 from .core import autograd_engine as _autograd_engine
 from .framework.compat import (check_shape, disable_signal_handler, get_cuda_rng_state,
                                set_cuda_rng_state)

@@ -2,7 +2,10 @@
 
 `set_flags`/`get_flags` as in paddle. A flag's default can be overridden
 by an environment variable of the same name. Only the flags the port
-reads are defined.
+reads are defined: here the framework's, beside the modules that read
+them the rest (telemetry/metrics.py, request_trace.py and timeline.py,
+distributed/resilience/retry.py). `watch_flag` lets a hot path cache a
+flag as a plain bool (the telemetry gates do).
 """
 from __future__ import annotations
 
@@ -12,6 +15,14 @@ import threading
 _lock = threading.Lock()
 _registry: dict = {}
 _docs: dict = {}
+_watchers: dict = {}  # flag name -> [callback(value)]
+
+
+def watch_flag(name: str, fn) -> None:
+    """Register `fn(value)`, fired outside the registry lock whenever
+    set_flags changes `name`."""
+    with _lock:
+        _watchers.setdefault(name, []).append(fn)
 
 
 def define_flag(name: str, default, doc: str = "") -> None:
@@ -36,12 +47,15 @@ def define_flag(name: str, default, doc: str = "") -> None:
 
 def set_flags(flags: dict) -> None:
     """paddle.set_flags: all or nothing, an unknown name raises before any
-    flag changes."""
+    flag changes (so no watcher is left unfired)."""
     with _lock:
         unknown = [k for k in flags if k not in _registry]
         if unknown:
             raise KeyError(f"unknown flag {unknown[0]!r}; define_flag it first")
         _registry.update(flags)
+        fired = [(fn, v) for k, v in flags.items() for fn in _watchers.get(k, ())]
+    for fn, v in fired:
+        fn(v)
 
 
 def get_flags(flags) -> dict:

@@ -5,9 +5,10 @@ paddle_tpu/inference/__init__.py).
 `{prefix}.pdllm` (JSON config) and `{prefix}.pdiparams` (pickled numpy
 weights in paddle layout), so either package serves the other's files.
 `Config(prefix).enable_llm_engine(...)` + `create_predictor(config)` give
-an LLMPredictor whose run() greedy-decodes through the paged-KV engine.
-The predictor runs on cuda:0 unless `Config.disable_gpu()` asks for the
-CPU.
+an LLMPredictor whose run() greedy-decodes through the paged-KV engine,
+or with `llm_replicas > 1` or `qos=` through a ReplicaFleet of engines
+over the same weights (inference/fleet.py, inference/qos.py). The
+predictor runs on cuda:0 unless `Config.disable_gpu()` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -22,11 +23,14 @@ from ..framework import device as _device
 from ..framework import io as fio
 from ..utils.convert import state_from_paddle_tpu, state_to_paddle_tpu
 from .engine import InferenceEngine
+from .fleet import NoHealthyReplica, ReplicaFleet, ReplicaStatus, fleet_replay
+from .qos import BrownoutConfig, QoSConfig, QoSPolicy, TenantConfig
 from .scheduler import ContinuousBatchingScheduler, Request, SpecDecodeConfig
 
 __all__ = ["Config", "Tensor", "LLMPredictor", "create_predictor", "save_llm", "load_llm",
            "PrecisionType", "InferenceEngine", "ContinuousBatchingScheduler",
-           "Request", "SpecDecodeConfig"]
+           "Request", "SpecDecodeConfig", "ReplicaFleet", "ReplicaStatus", "NoHealthyReplica",
+           "fleet_replay", "QoSConfig", "QoSPolicy", "TenantConfig", "BrownoutConfig"]
 
 
 class PrecisionType:
@@ -76,12 +80,16 @@ class Config:
                           **engine_opts):
         """Serve through the paged-KV InferenceEngine; `engine_opts` go to
         it (max_seq_len, block_size, num_blocks, max_batch, kv_dtype, ...).
-        Replica fleets and QoS come in a later slice."""
-        if int(llm_replicas) != 1:
-            raise NotImplementedError("llm_replicas > 1 (the replica fleet) comes in a later slice")
-        if qos is not None:
-            raise NotImplementedError("QoS comes in a later slice")
-        self._llm_opts.update(max_new_tokens=max_new_tokens, eos_id=eos_id, **engine_opts)
+        `llm_replicas > 1` backs the predictor with a ReplicaFleet of that
+        many engines over one weight set. `qos` (a QoSConfig or a QoSPolicy)
+        turns on overload protection and tenant fairness; QoS always runs
+        through a fleet (of 1 when llm_replicas == 1), so the policy state
+        is shared as a multi-replica deployment shares it."""
+        self._llm_opts.update(max_new_tokens=max_new_tokens, eos_id=eos_id,
+                              llm_replicas=int(llm_replicas), qos=qos, **engine_opts)
+
+    def llm_replicas(self) -> int:
+        return int(self._llm_opts.get("llm_replicas", 1))
 
     def is_llm(self) -> bool:
         return self._prefix is not None and os.path.exists(self._prefix + ".pdllm")
@@ -156,10 +164,29 @@ class LLMPredictor:
         opts = dict(config._llm_opts)
         self._max_new_tokens = int(opts.pop("max_new_tokens", 32))
         self._eos_id = opts.pop("eos_id", None)
-        self._engine = InferenceEngine(self._model, **opts)
+        n_replicas = max(1, int(opts.pop("llm_replicas", 1)))
+        qos = opts.pop("qos", None)
+        # N engines over the SAME model: each holds references to its
+        # tensors until a hot swap rebinds that engine's set
+        engines = [InferenceEngine(self._model, **opts) for _ in range(n_replicas)]
+        self._engine = engines[0]
+        if qos is not None and not isinstance(qos, QoSPolicy):
+            qos = QoSPolicy(qos)  # one policy shared by every replica
+        self._qos = qos
+        self._fleet = (ReplicaFleet(engines, eos_id=self._eos_id, qos=qos)
+                       if n_replicas > 1 or qos is not None else None)
         self._inputs = {"input_ids": Tensor("input_ids", np.int64),
                         "seq_lens": Tensor("seq_lens", np.int64)}
         self._outputs = {"generated_ids": Tensor("generated_ids")}
+
+    def qos(self):
+        """The shared QoSPolicy (None when QoS is off)."""
+        return self._qos
+
+    def fleet(self):
+        """The backing ReplicaFleet (None for a single-replica predictor
+        without QoS): request_swap() and health inspection."""
+        return self._fleet
 
     def get_input_names(self):
         return list(self._inputs)
@@ -192,8 +219,11 @@ class LLMPredictor:
                 f"seq_lens has {lens.shape[0]} entries for {ids.shape[0]} input_ids rows — "
                 "re-copy seq_lens (a stale handle would silently truncate the batch)")
         prompts = [list(map(int, row[: int(n)])) for row, n in zip(ids, lens)]
-        gen = self._engine.generate(prompts, max_new_tokens=self._max_new_tokens,
-                                    eos_id=self._eos_id)
+        if self._fleet is not None:
+            gen = self._fleet.generate(prompts, max_new_tokens=self._max_new_tokens)
+        else:
+            gen = self._engine.generate(prompts, max_new_tokens=self._max_new_tokens,
+                                        eos_id=self._eos_id)
         out = np.full((len(gen), self._max_new_tokens), -1, np.int32)
         for i, g in enumerate(gen):
             out[i, : len(g)] = g

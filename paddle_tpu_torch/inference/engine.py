@@ -1,12 +1,22 @@
 """Greedy-decode inference engine over the paged KV cache (counterpart of
 paddle_tpu/inference/engine.py).
 
-One engine owns the model, a BlockPool on the model's device, and the
-shape-bucket arithmetic: prompts are padded into (1, seq_bucket) prefill
+One engine owns its parameter set, a BlockPool on the model's device, and
+the shape-bucket arithmetic: prompts are padded into (1, seq_bucket) prefill
 steps and in-flight sequences into (batch_bucket, 1) decode steps, with
 the JAX package's bucket sets. Steps run eagerly under
 `torch.inference_mode()`; the JAX package's AOT-compiled bucket programs,
-mesh placement and compile-cache plumbing have no part in this slice.
+mesh placement and compile-cache plumbing have no part here (mesh/TP
+placement and checkpoint swaps arrive with the distributed runtime).
+
+Parameters: the engine holds references to the model's tensors at
+construction (`self.params`, as the JAX engine holds the model's arrays)
+and every step runs the model on that set. `load_weights` builds new
+tensors and rebinds this engine's set only: the engine then steps a copy
+of the model's module tree over the new tensors (the model's buffers
+shared, no weight copied), so the model object and every other engine
+over it keep theirs, and N engines over one model cost one weight set
+until a rollout, two during it.
 
 Padding contract: prefill pads the prompt on the right (causal masking
 keeps real tokens from seeing the pad tail; its K/V writes land past
@@ -16,12 +26,16 @@ whose seq_len is 1; their results are discarded.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from .. import telemetry
+from ..telemetry import metrics as _metrics
 from .kv_cache import BlockPool
 
 __all__ = ["InferenceEngine"]
@@ -45,6 +59,16 @@ def _default_batch_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(sorted(set(out)))
 
 
+def _rebind(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> nn.Module:
+    """A copy of `model`'s module tree whose parameters are `tensors` (by
+    name) and whose buffers are the model's own: no weight is copied and
+    the model is not touched."""
+    memo = {id(b): b for b in model.buffers()}
+    for name, p in model.named_parameters(remove_duplicate=False):
+        memo[id(p)] = nn.Parameter(tensors[name], requires_grad=False)
+    return copy.deepcopy(model, memo)
+
+
 class InferenceEngine:
     """`model` is LlamaForCausalLM-shaped: a `.config` dict and a
     `forward(ids, cache=, positions=, last_index=)` decode mode."""
@@ -58,6 +82,7 @@ class InferenceEngine:
             raise ValueError("InferenceEngine needs a model with a .config dict "
                              "(LlamaForCausalLM-shaped)")
         self._model = model
+        self._module = model  # what the steps run: the model, or a copy over swapped weights
         self.num_layers = int(cfg["num_hidden_layers"])
         heads = int(cfg["num_attention_heads"])
         self.num_kv_heads = int(cfg.get("num_key_value_heads") or heads)
@@ -70,6 +95,9 @@ class InferenceEngine:
         self.prefill_buckets = _default_prefill_buckets(self.max_seq_len, self.block_size)
         self.decode_batch_buckets = tuple(
             decode_batch_buckets or _default_batch_buckets(self.max_batch))
+        # this engine's parameter set: references to the model's tensors
+        # until load_weights rebinds it (never written in place)
+        self.params: Dict[str, torch.Tensor] = dict(model.state_dict(keep_vars=True))
         param = next(model.parameters())
         self.device = param.device
         if num_blocks is None:
@@ -81,32 +109,74 @@ class InferenceEngine:
         # steps run per kind: each prefill launches the flash kernel once per
         # layer, each decode/extend the paged kernel once per layer
         self.step_counts: Dict[str, int] = {"prefill": 0, "decode": 0, "extend": 0}
+        # bumped by every load_weights(); the fleet exports it per replica
+        # so a half-finished rollout is visible in telemetry
         self.weights_version = 0
 
-    # ---- weight swap ----
+    # ---- weight hot swap ----
     def load_weights(self, state) -> int:
-        """Copy a full replacement parameter set (the model's own
-        state_dict keys and shapes) into the model in place. Resident
-        prefix-cache K/V was computed under the old weights, so the prefix
-        index is dropped. Returns the new weights_version."""
-        params = dict(self._model.state_dict())
-        missing, extra = set(params) - set(state), set(state) - set(params)
+        """Swap in a full replacement parameter set: `state` maps every
+        param name (exactly the engine's key set) to a tensor or array of
+        the same shape; the dtype is cast to the current param's. New
+        tensors on the engine's device rebind THIS engine's set: the model
+        and other engines over it are untouched (a tensor already on the
+        device in that dtype is taken by reference, so engines swapped from
+        one mapping share it). Resident prefix-cache K/V was computed under
+        the old weights, so the prefix index is dropped. Returns the new
+        weights_version."""
+        missing, extra = set(self.params) - set(state), set(state) - set(self.params)
         if missing or extra:
             raise ValueError(
                 f"load_weights: state keys do not match the engine's params "
                 f"(missing {sorted(missing)[:3]}, unexpected {sorted(extra)[:3]})")
-        for k, cur in params.items():
-            v = torch.as_tensor(state[k])
-            if tuple(v.shape) != tuple(cur.shape):
+        vals = {k: torch.as_tensor(state[k]) for k in self.params}
+        for k, cur in self.params.items():
+            if tuple(vals[k].shape) != tuple(cur.shape):
                 raise ValueError(
-                    f"load_weights: {k!r} shape {tuple(v.shape)} != engine's {tuple(cur.shape)}"
-                    " — a hot swap cannot change the model")
+                    f"load_weights: {k!r} shape {tuple(vals[k].shape)} != engine's "
+                    f"{tuple(cur.shape)} — a hot swap cannot change the model")
         with torch.no_grad():
-            for k, cur in params.items():
-                cur.copy_(torch.as_tensor(state[k]).to(device=cur.device, dtype=cur.dtype))
+            new = {k: vals[k].detach().to(device=cur.device, dtype=cur.dtype)
+                   for k, cur in self.params.items()}
+        self._module = _rebind(self._model, new)
+        self.params = dict(self._module.state_dict(keep_vars=True))
         self.weights_version += 1
         self.pool.invalidate_prefix()
+        if telemetry.enabled():
+            _metrics.counter(
+                "paddle_tpu_serving_weight_swaps_total",
+                "engine parameter sets hot-swapped",
+            ).inc()
         return self.weights_version
+
+    def checkpoint_template(self, state_key: Optional[str] = "model"):
+        raise NotImplementedError(
+            "checkpoint_template needs distributed.checkpoint, which arrives with the "
+            "distributed runtime (ROADMAP Queue A item 5); pass load_weights a mapping")
+
+    def load_weights_from_checkpoint(self, path: str, state_key: Optional[str] = "model") -> int:
+        raise NotImplementedError(
+            "load_weights_from_checkpoint needs distributed.checkpoint, which arrives with "
+            "the distributed runtime (ROADMAP Queue A item 5); pass load_weights a mapping")
+
+    def prewarm(self, *, include_prefill: bool = True, include_decode: bool = True,
+                extend_q: Sequence[int] = ()) -> dict:
+        """Run every bucket once before traffic (cuBLAS handles, kernel
+        loads), so the first request pays none of it. The steps write only
+        the trash page. `include_prefill=False` warms a decode-tier engine
+        (streamed admission never runs a bucketed prefill); `extend_q` adds
+        the extend family for those query lengths. The steps are counted in
+        step_counts like any other. Returns a copy of step_counts."""
+        if include_prefill:
+            for S in self.prefill_buckets:
+                self.prefill([1] * S, [])
+        for B in self.decode_batch_buckets if include_decode else ():
+            self.decode([1] * B, [0] * B, [1] * B, [[]] * B)
+        for q in extend_q:
+            for B in self.decode_batch_buckets:
+                self.extend([[1] * int(q)] * B, [list(range(int(q)))] * B, [[]] * B,
+                            q_len=int(q))
+        return dict(self.step_counts)
 
     # ---- buckets ----
     def bucket_for(self, kind: str, n: int) -> int:
@@ -135,8 +205,8 @@ class InferenceEngine:
         ids[0, :L] = np.asarray(prompt_ids, np.int64)
         bt = np.asarray([self.pool.padded_table(pages, self.max_pages)], np.int32)
         view = self.pool.view(self._tensor(bt), self._tensor(np.asarray([L], np.int32)))
-        logits = self._model(self._tensor(ids), cache=view,
-                             last_index=self._tensor(np.asarray([L - 1], np.int64)))
+        logits = self._module(self._tensor(ids), cache=view,
+                               last_index=self._tensor(np.asarray([L - 1], np.int64)))
         self.step_counts["prefill"] += 1
         return self._logits(logits[0])
 
@@ -159,7 +229,7 @@ class InferenceEngine:
         for i, row in enumerate(page_rows):
             bt[i] = self.pool.padded_table(row, self.max_pages)
         view = self.pool.view(self._tensor(bt), self._tensor(lens))
-        logits = self._model(self._tensor(tok), cache=view, positions=self._tensor(pos))
+        logits = self._module(self._tensor(tok), cache=view, positions=self._tensor(pos))
         self.step_counts["decode"] += 1
         return self._logits(logits[:n, 0])
 
@@ -190,7 +260,7 @@ class InferenceEngine:
             bt[i] = self.pool.padded_table(row, self.max_pages)
         view = self.pool.view(self._tensor(bt), self._tensor(pos[:, -1] + 1),
                               write_mask=self._tensor(valid))
-        logits = self._model(self._tensor(tok), cache=view, positions=self._tensor(pos))
+        logits = self._module(self._tensor(tok), cache=view, positions=self._tensor(pos))
         self.step_counts["extend"] += 1
         return self._logits(logits[:n])
 

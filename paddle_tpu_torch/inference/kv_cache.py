@@ -1,5 +1,5 @@
 """Paged KV cache: fixed-size pages in a preallocated per-layer pool
-(counterpart of paddle_tpu/inference/kv_cache.py:1-580).
+(counterpart of paddle_tpu/inference/kv_cache.py).
 
 Per layer the pool holds k/v pages [num_blocks, block_size, Hkv, D] on the
 device; a host-side allocator hands pages out. Page 0 is reserved as the
@@ -13,21 +13,40 @@ and reclaimed LRU-first, and copy-on-write through `make_private`. An
 int8 pool (`kv_dtype="int8"`) stores pages as int8 with per-slot-per-kv-
 head f32 scale planes [N, bs, Hkv] written with the absmax rule of
 quantization/observers.py.
+
+Pool pressure exports through the telemetry registry (the JAX package's
+`paddle_tpu_kv_*` families), and `owner=` charges pages to a request id
+in the request traces. Cross-pool migration (the disaggregated fleet's
+prefill -> decode handoff) goes through the host: `export_pages` gathers a
+request's pages into a numpy payload, `convert_payload` re-encodes it for
+an int8 destination with the same absmax rule the pool writes with,
+`payload_page_crcs` CRCs every page's bytes, `import_pages` scatters it.
+bf16 planes travel as their 16-bit patterns (`np.uint16`, the payload's
+"dtype" says "bfloat16"): the card's Python has no `ml_dtypes`. A JAX
+payload (`ml_dtypes.bfloat16` arrays) imports unchanged, and the CRCs of
+the same page bytes are the JAX package's.
 """
 from __future__ import annotations
 
 import hashlib
 import math
+import random
+import zlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import telemetry
 from ..framework import device as _device
 from ..quantization.observers import absmax_scale, quantize_absmax
+from ..telemetry import metrics as _metrics
+from ..telemetry import request_trace as _rt
 
 __all__ = ["BlockPool", "PagedCacheView", "PoolExhausted", "TRASH_PAGE", "chain_extend",
-           "prefix_chain_keys"]
+           "prefix_chain_keys", "export_pages", "convert_payload", "import_pages",
+           "payload_page_crcs", "corrupt_payload"]
 
 TRASH_PAGE = 0  # reserved: block-table padding + padded-position writes
 
@@ -35,6 +54,22 @@ TRASH_PAGE = 0  # reserved: block-table padding + padded-position writes
 class PoolExhausted(RuntimeError):
     """alloc() found too few free pages: the caller's cue to preempt or
     refuse admission."""
+
+
+def _pool_gauge(state: str):
+    return _metrics.gauge(
+        "paddle_tpu_kv_pool_blocks",
+        "paged KV cache pool occupancy by state",
+        label_names=("state",),
+    ).labels(state=state)
+
+
+def _prefix_counter(event: str):
+    return _metrics.counter(
+        "paddle_tpu_kv_prefix_lookups_total",
+        "prefix-cache admission lookups by outcome",
+        label_names=("event",),
+    ).labels(event=event)
 
 
 def chain_extend(h: bytes, page_tokens: Sequence[int]) -> bytes:
@@ -158,6 +193,9 @@ class BlockPool:
         self._prefix: Dict[bytes, int] = {}
         self._page_key: Dict[int, bytes] = {}
         self.cow_copies = 0
+        if telemetry.enabled():
+            _pool_gauge("total").set(self.num_blocks - 1)
+            self._sync_gauges()
 
     @property
     def quantized(self) -> bool:
@@ -197,6 +235,11 @@ class BlockPool:
     def pool_bytes(self) -> int:
         return self.num_blocks * self.page_bytes()
 
+    def _sync_gauges(self) -> None:
+        _pool_gauge("used").set(self.used())
+        _pool_gauge("shared").set(self.shared())
+        _pool_gauge("retained").set(self.retained())
+
     # ---- allocator ----
     def _evict_retained(self, n: int) -> int:
         """Reclaim up to `n` retained pages, LRU-first, dropping their
@@ -208,12 +251,26 @@ class BlockPool:
             self._page_key.pop(page, None)
             self._free.append(page)
             evicted += 1
+        if evicted and telemetry.enabled():
+            _metrics.counter(
+                "paddle_tpu_kv_prefix_evictions_total",
+                "retained prefix pages reclaimed (LRU) to satisfy allocation",
+            ).inc(evicted)
         return evicted
 
-    def alloc(self, n: int) -> List[int]:
+    def alloc(self, n: int, owner: Optional[int] = None) -> List[int]:
+        """`owner` is the request id the pages are charged to (request-trace
+        attribution only; the allocator itself is owner-blind)."""
         if n > len(self._free):
             self._evict_retained(n - len(self._free))
         if n > len(self._free):
+            if telemetry.enabled():
+                _metrics.counter(
+                    "paddle_tpu_kv_pool_alloc_failures_total",
+                    "paged KV pool allocations refused for lack of free pages",
+                ).inc()
+            if _rt.enabled():
+                _rt.record_event("kv_pool", "alloc_failure", rid=owner, n=n, free=len(self._free))
             raise PoolExhausted(
                 f"paged KV pool exhausted: want {n} pages, {self.available()} "
                 f"reclaimable of {self.num_blocks - 1}"
@@ -221,9 +278,16 @@ class BlockPool:
         out = [self._free.pop() for _ in range(n)]
         for p in out:
             self._refs[p] = 1
+        if telemetry.enabled():
+            _metrics.counter("paddle_tpu_kv_pool_allocs_total",
+                             "paged KV pool pages handed out").inc(n)
+            self._sync_gauges()
+        if _rt.enabled():
+            # used-after rides every event: the occupancy-over-time curve
+            _rt.record_event("kv_pool", "alloc", rid=owner, n=n, used=self.used())
         return out
 
-    def share(self, pages: Sequence[int]) -> None:
+    def share(self, pages: Sequence[int], owner: Optional[int] = None) -> None:
         """One more reference on resident pages; retained ones revive."""
         for p in pages:
             p = int(p)
@@ -236,8 +300,13 @@ class BlockPool:
                 self._refs[p] = 1
             else:
                 raise ValueError(f"share of page {p} that is not resident")
+        if telemetry.enabled() and pages:
+            self._sync_gauges()
+        if _rt.enabled() and pages:
+            _rt.record_event("kv_pool", "share", rid=owner, n=len(pages), used=self.used())
 
-    def free(self, pages: Sequence[int], retain: bool = True) -> None:
+    def free(self, pages: Sequence[int], owner: Optional[int] = None,
+             retain: bool = True) -> None:
         """Drop one reference per page. At refcount zero an indexed page is
         retained when `retain` (completion), else (preemption) its index
         entry drops and it returns to the free list."""
@@ -261,6 +330,12 @@ class BlockPool:
                     self._page_key.pop(p, None)
                     self._prefix.pop(key, None)
                 self._free.append(p)
+        if telemetry.enabled() and pages:
+            _metrics.counter("paddle_tpu_kv_pool_frees_total",
+                             "paged KV pool pages returned").inc(len(pages))
+            self._sync_gauges()
+        if _rt.enabled() and pages:
+            _rt.record_event("kv_pool", "free", rid=owner, n=len(pages), used=self.used())
 
     def reset(self) -> None:
         self._free = list(range(self.num_blocks - 1, 0, -1))
@@ -268,6 +343,16 @@ class BlockPool:
         self._retained.clear()
         self._prefix.clear()
         self._page_key.clear()
+        if telemetry.enabled():
+            self._sync_gauges()
+
+    def note_fragmentation(self, active_tokens: int) -> None:
+        """Internal fragmentation: allocated slots minus live tokens."""
+        if telemetry.enabled():
+            _metrics.gauge(
+                "paddle_tpu_kv_pool_frag_slots",
+                "allocated-but-unwritten KV slots (internal fragmentation)",
+            ).set(self.used() * self.block_size - int(active_tokens))
 
     # ---- prefix index ----
     def register_prefix(self, key: bytes, page: int) -> bool:
@@ -284,8 +369,9 @@ class BlockPool:
         self._page_key[page] = key
         return True
 
-    def acquire_prefix(self, keys: Sequence[bytes]) -> List[int]:
-        """Longest resident prefix of `keys`, each page shared; may be []."""
+    def acquire_prefix(self, keys: Sequence[bytes], owner: Optional[int] = None) -> List[int]:
+        """Longest resident prefix of `keys`, each page shared; may be [].
+        Counts hit/miss lookups and cached tokens."""
         pages: List[int] = []
         for key in keys:
             page = self._prefix.get(key)
@@ -293,7 +379,14 @@ class BlockPool:
                 break
             pages.append(page)
         if pages:
-            self.share(pages)
+            self.share(pages, owner=owner)
+        if telemetry.enabled():
+            _prefix_counter("hit" if pages else "miss").inc()
+            if pages:
+                _metrics.counter(
+                    "paddle_tpu_kv_prefix_cached_tokens_total",
+                    "prompt tokens served from shared prefix pages instead of recomputed",
+                ).inc(len(pages) * self.block_size)
         return pages
 
     def prefix_index_size(self) -> int:
@@ -308,13 +401,20 @@ class BlockPool:
         while self._retained:
             page, _ = self._retained.popitem(last=False)
             self._free.append(page)
+        if telemetry.enabled():
+            if n:
+                _metrics.counter(
+                    "paddle_tpu_kv_prefix_invalidations_total",
+                    "prefix-index entries dropped wholesale (weight swap)",
+                ).inc(n)
+            self._sync_gauges()
         return n
 
     def is_indexed(self, page: int) -> bool:
         return int(page) in self._page_key
 
     # ---- copy-on-write ----
-    def make_private(self, page: int) -> int:
+    def make_private(self, page: int, owner: Optional[int] = None) -> int:
         """Clone `page` into a fresh exclusive page (K/V and scales on every
         layer) and drop the caller's reference on the original."""
         page = int(page)
@@ -322,15 +422,24 @@ class BlockPool:
             raise ValueError("page 0 is reserved; writes there are scribbles")
         if page not in self._refs:
             raise ValueError(f"make_private of page {page} that is not held")
-        (new,) = self.alloc(1)
+        (new,) = self.alloc(1, owner=owner)
         with torch.inference_mode():
-            planes = self.k_pages + self.v_pages + (self.k_scales or []) + (self.v_scales or [])
-            for t in planes:
+            for t in self._planes():
                 t[new].copy_(t[page])
         # the clone is not index-shareable: its writes will diverge
-        self.free([page], retain=True)
+        self.free([page], owner=owner, retain=True)
         self.cow_copies += 1
+        if telemetry.enabled():
+            _metrics.counter(
+                "paddle_tpu_kv_pool_cow_copies_total",
+                "shared pages cloned copy-on-write before a divergent write",
+            ).inc()
+        if _rt.enabled():
+            _rt.record_event("kv_pool", "cow", rid=owner, src=page, dst=new, used=self.used())
         return new
+
+    def _planes(self) -> List[torch.Tensor]:
+        return self.k_pages + self.v_pages + (self.k_scales or []) + (self.v_scales or [])
 
     # ---- device views ----
     def view(self, block_tables, seq_lens, write_mask=None) -> PagedCacheView:
@@ -338,7 +447,153 @@ class BlockPool:
                               self.block_size, k_scales=self.k_scales, v_scales=self.v_scales,
                               write_mask=write_mask)
 
+    def device_state(self) -> Dict[str, List[torch.Tensor]]:
+        """The pool's page tensors as one dict (scale planes when
+        quantized); steps update them in place, so this is a view."""
+        state = {"k": list(self.k_pages), "v": list(self.v_pages)}
+        if self.k_scales is not None:
+            state["k_scale"] = list(self.k_scales)
+            state["v_scale"] = list(self.v_scales)
+        return state
+
+    def adopt_state(self, state: Dict[str, List[torch.Tensor]]) -> None:
+        self.adopt(state["k"], state["v"])
+        if self.k_scales is not None:
+            if "k_scale" not in state:
+                raise ValueError("quantized pool state is missing scale planes")
+            self.k_scales = list(state["k_scale"])
+            self.v_scales = list(state["v_scale"])
+
+    def adopt(self, k_pages: Sequence[torch.Tensor], v_pages: Sequence[torch.Tensor]) -> None:
+        """Install page tensors into the pool."""
+        if len(k_pages) != self.num_layers or len(v_pages) != self.num_layers:
+            raise ValueError("page-array layer count does not match the pool")
+        self.k_pages = list(k_pages)
+        self.v_pages = list(v_pages)
+
     def padded_table(self, pages: Sequence[int], n_cols: int) -> List[int]:
         """One sequence's block-table row padded with the trash page."""
         row = list(pages)[:n_cols]
         return row + [TRASH_PAGE] * (n_cols - len(row))
+
+
+# ---------------------------------------------------------------------------
+# cross-pool page migration (the disaggregated fleet's prefill -> decode
+# handoff), through the host as in the JAX package: gather the pages, re-
+# encode for the destination's kv_dtype, CRC every page, scatter. The
+# receiver re-exports what landed and compares CRCs before it commits.
+# ---------------------------------------------------------------------------
+
+_PAYLOAD_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A plane on the host: bf16 as its 16-bit patterns (np.uint16)."""
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _plane_dtype(arr: np.ndarray, stated: Optional[str]) -> torch.dtype:
+    """The torch dtype a payload plane holds: bf16 when the payload says so
+    (16-bit patterns) or the array is an ml_dtypes.bfloat16 one."""
+    if arr.dtype.name == "bfloat16" or (stated == "bfloat16" and arr.dtype == np.uint16):
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros(0, arr.dtype)).dtype
+
+
+def _device_plane(arr: np.ndarray, stated: Optional[str]) -> torch.Tensor:
+    """A payload plane as a CPU torch tensor of the dtype it holds."""
+    if _plane_dtype(arr, stated) == torch.bfloat16:
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
+def export_pages(pool: BlockPool, pages: Sequence[int]) -> Dict:
+    """Gather `pages`' K/V (plus scale planes on a quantized pool) into a
+    host payload; entry j of every plane is the content of pages[j]."""
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=pool.device)
+    with torch.inference_mode():
+        payload: Dict = {
+            "kv_dtype": pool.kv_dtype,
+            "dtype": str(pool.dtype).replace("torch.", ""),
+            "k": [_host(a.index_select(0, idx)) for a in pool.k_pages],
+            "v": [_host(a.index_select(0, idx)) for a in pool.v_pages],
+        }
+        if pool.quantized:
+            payload["k_scale"] = [_host(a.index_select(0, idx)) for a in pool.k_scales]
+            payload["v_scale"] = [_host(a.index_select(0, idx)) for a in pool.v_scales]
+    return payload
+
+
+def convert_payload(payload: Dict, kv_dtype: Optional[str]) -> Dict:
+    """Re-encode a payload for a pool storing `kv_dtype`. Unquantized ->
+    int8 quantizes every slot with the absmax rule the destination's own
+    writes use, so the pages are byte-identical to what it would have
+    written; int8 -> unquantized is refused (lossy: recompute instead)."""
+    src = payload["kv_dtype"]
+    if src == kv_dtype:
+        return payload
+    if src is None and kv_dtype == "int8":
+        out: Dict = {"kv_dtype": "int8", "dtype": "int8", "k": [], "v": [], "k_scale": [],
+                     "v_scale": []}
+        stated = payload.get("dtype")
+        for plane, scale_key in (("k", "k_scale"), ("v", "v_scale")):
+            for arr in payload[plane]:
+                x = _device_plane(arr, stated)
+                sc = absmax_scale(x, dim=-1)  # [n, bs, Hkv] f32
+                out[plane].append(quantize_absmax(x, sc[..., None]).numpy())
+                out[scale_key].append(sc.numpy())
+        return out
+    raise ValueError(
+        f"unsupported KV migration {src!r} -> {kv_dtype!r} "
+        "(int8 pages cannot re-expand losslessly; recompute instead)")
+
+
+def payload_page_crcs(payload: Dict) -> List[int]:
+    """Per-page CRC32 over every byte the payload writes (K, V and scale
+    planes across all layers)."""
+    n = payload["k"][0].shape[0] if payload["k"] else 0
+    crcs: List[int] = []
+    for j in range(n):
+        c = 0
+        for key in _PAYLOAD_KEYS:
+            for arr in payload.get(key) or ():
+                c = zlib.crc32(np.ascontiguousarray(arr[j]).tobytes(), c)
+        crcs.append(c)
+    return crcs
+
+
+def import_pages(pool: BlockPool, pages: Sequence[int], payload: Dict) -> None:
+    """Scatter a (converted) payload into already-allocated `pages` of
+    `pool`; its kv_dtype must be the pool's (convert first)."""
+    if payload["kv_dtype"] != pool.kv_dtype:
+        raise ValueError(
+            f"payload kv_dtype {payload['kv_dtype']!r} does not match the destination pool's "
+            f"{pool.kv_dtype!r} — convert_payload first")
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=pool.device)
+    stated = payload.get("dtype")
+    planes = [(pool.k_pages, "k", pool.dtype), (pool.v_pages, "v", pool.dtype)]
+    if pool.quantized:
+        planes += [(pool.k_scales, "k_scale", torch.float32),
+                   (pool.v_scales, "v_scale", torch.float32)]
+    with torch.inference_mode():
+        for dst, key, dt in planes:
+            for layer in range(pool.num_layers):
+                src = _device_plane(payload[key][layer], stated if key in ("k", "v") else None)
+                dst[layer].index_copy_(0, idx, src.to(device=pool.device, dtype=dt))
+
+
+def corrupt_payload(payload: Dict, seed=0) -> Dict:
+    """Flip ONE deterministic byte of the payload's first K plane in place
+    (a torn transfer); x ^ 0xFF never equals x, so the readback CRC must
+    catch it."""
+    rng = random.Random(seed)
+    arr = np.ascontiguousarray(payload["k"][0])
+    raw = bytearray(arr.tobytes())
+    pos = rng.randrange(len(raw))
+    raw[pos] ^= 0xFF
+    payload["k"][0] = np.frombuffer(bytes(raw), dtype=arr.dtype).reshape(arr.shape)
+    return payload

@@ -1,0 +1,285 @@
+"""Port parity for multi-tenant QoS (inference/qos.py) and the scheduler's
+QoS gates: the same inputs, clocks and request mixes through the JAX
+package and paddle_tpu_torch. Buckets, the brownout ladder, dequeue order,
+sheds (reason and retry hint), capped budgets and greedy ids must be
+equal: this is host integer/float logic on the same numbers, so nothing is
+held to a tolerance."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import paddle_tpu as paddle
+from paddle_tpu.inference import engine as jeng
+from paddle_tpu.inference import fleet as jfl
+from paddle_tpu.inference import qos as jqos
+from paddle_tpu.inference import scheduler as jsch
+from paddle_tpu.models import llama as jllama
+from paddle_tpu.telemetry import request_trace as jrt
+from paddle_tpu.telemetry import timeline as jtl
+
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.inference import engine as teng
+from paddle_tpu_torch.inference import fleet as tfl
+from paddle_tpu_torch.inference import qos as tqos
+from paddle_tpu_torch.inference import scheduler as tsch
+from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.telemetry import request_trace as trt
+from paddle_tpu_torch.telemetry import timeline as ttl
+from paddle_tpu_torch.utils.convert import state_from_paddle_tpu
+
+ENGINE = dict(max_seq_len=64, block_size=8, max_batch=4, decode_batch_buckets=(4,))
+J = SimpleNamespace(name="jax", qos=jqos, sch=jsch, eng=jeng, fl=jfl, rt=jrt, tl=jtl, flags=paddle)
+T = SimpleNamespace(name="torch", qos=tqos, sch=tsch, eng=teng, fl=tfl, rt=trt, tl=ttl, flags=ptt)
+
+
+@pytest.fixture(scope="module")
+def models():
+    ptt.set_device("cpu")
+    paddle.seed(0)
+    jm = jllama.llama_tiny(num_key_value_heads=2)
+    jm.eval()
+    tm = tllama.LlamaForCausalLM(**jm.config, device="cpu")
+    tm.load_state_dict(state_from_paddle_tpu(
+        {k: np.asarray(v._value) for k, v in jm.state_dict().items()}))
+    return {"jax": jm, "torch": tm.eval()}
+
+
+# ---------------------------------------------------------------------------
+# the policy objects on their own
+# ---------------------------------------------------------------------------
+
+def _bucket_trace(ns):
+    rng = np.random.RandomState(5)
+    b = ns.qos.TokenBucket(rate=40.0, burst=100.0, now=0.0)
+    out, now = [], 0.0
+    for _ in range(60):
+        now += float(rng.exponential(0.3))
+        n = float(rng.randint(1, 60))
+        ok = b.try_take(n, now)
+        out.append((ok, b.tokens, b.retry_after(n), b.retry_after(500.0)))
+    return out
+
+
+def _ladder_trace(ns):
+    c = ns.qos.BrownoutController(ns.qos.BrownoutConfig(
+        enter_pressure=0.8, exit_pressure=0.4, cooldown_s=0.25, capped_max_new=3, low_priority=1))
+    rng = np.random.RandomState(6)
+    out, now = [], 0.0
+    for _ in range(80):
+        now += 0.1
+        p = float(rng.choice([0.1, 0.5, 0.85, 1.0]))
+        out.append((c.update(p, now), c.step, c.step_name, c.spec_allowed(), c.max_new_cap(0),
+                    c.max_new_cap(2), c.sheds(1), c.sheds(0), c.transitions))
+    return out
+
+
+def _policy_trace(ns):
+    cfg = ns.qos.QoSConfig(
+        tenants={"gold": ns.qos.TenantConfig(weight=3.0, rate_tokens_per_s=200.0,
+                                             burst_tokens=120.0),
+                 "free": ns.qos.TenantConfig(weight=1.0, rate_tokens_per_s=50.0)},
+        max_waiting=5, brownout=ns.qos.BrownoutConfig(degraded_pressure_floor=0.9))
+    pol = ns.qos.QoSPolicy(cfg)
+    rng = np.random.RandomState(7)
+    waiting, out, now = [], [], 0.0
+    for i in range(40):
+        now += float(rng.exponential(0.05))
+        r = ns.sch.Request(rid=i, prompt=[1] * int(rng.randint(2, 30)),
+                           max_new_tokens=int(rng.randint(1, 40)),
+                           tenant=str(rng.choice(["gold", "free", "other"])),
+                           priority=int(rng.randint(0, 3)),
+                           deadline_s=float(rng.choice([0.01, 1.0, 50.0])))
+        r.submitted_time = now
+        ok, retry = pol.rate_gate(r, now)
+        full = pol.queue_full(len(waiting))
+        victim = pol.queue_full_victim(waiting, r).rid if full else None
+        dead = pol.deadline_unmeetable(r, float(rng.choice([0.0, 0.001, 0.02])), 1 + i % 3)
+        waiting.append(r)
+        if len(waiting) > 4:
+            j = pol.select(waiting)
+            pol.charge(waiting.pop(j))
+            out.append(("select", j))
+        if i % 7 == 0:
+            pol.set_degraded(i % 14 == 0)
+            pol.note_slo_burn(float(rng.rand()))
+        out.append((ok, retry, full, victim, dead,
+                    pol.update_pressure(now, float(rng.rand()), float(rng.rand())),
+                    round(pol.last_pressure, 12), dict(sorted(pol._debt.items()))))
+    pol.note_shed("rate_limit")
+    out.append(pol.shed_counts)
+    return out
+
+
+@pytest.mark.parametrize("trace", [_bucket_trace, _ladder_trace, _policy_trace],
+                         ids=["token_bucket", "brownout_ladder", "policy_decisions"])
+def test_policy_objects_match_jax(trace):
+    assert trace(T) == trace(J)
+
+
+def test_fairness_and_tenant_report_match_jax():
+    for shares in ([1, 1, 1], [3, 1], [0.5, 7.25, 2], [], [0, 0]):
+        assert tqos.jain_fairness(shares) == jqos.jain_fairness(shares)
+
+    def finished(ns):
+        out = []
+        for i, (tenant, outcome, gen) in enumerate([("a", "completed", 5), ("b", "shed", 0),
+                                                    ("a", "completed", 9), ("b", "completed", 2),
+                                                    ("c", "expired", 1)]):
+            r = ns.sch.Request(rid=i, prompt=[1, 2, 3], max_new_tokens=9, tenant=tenant)
+            r.outcome = outcome
+            r.generated = list(range(gen))
+            r.token_times = [0.01 * k * (i + 1) for k in range(gen)]
+            out.append(r)
+        return out
+
+    for ns_cfg in (None, "weights"):
+        cfgs = [ns.qos.QoSConfig(tenants={"a": ns.qos.TenantConfig(weight=2.0)}) if ns_cfg
+                else None for ns in (T, J)]
+        assert tqos.tenant_report(finished(T), cfgs[0]) == jqos.tenant_report(finished(J), cfgs[1])
+
+
+# ---------------------------------------------------------------------------
+# the scheduler and the fleet under QoS
+# ---------------------------------------------------------------------------
+
+def _clock():
+    t = [0.0]
+
+    def clock():
+        t[0] += 0.001
+        return t[0]
+    return clock
+
+
+def _overload_requests(ns):
+    rng = np.random.RandomState(11)
+    out, t = [], 0.0
+    for i, (tenant, prio) in enumerate([("gold", 0)] * 4 + [("silver", 1)] * 6
+                                       + [("bronze", 2)] * 8):
+        t += float(rng.exponential(0.0015))
+        out.append(ns.sch.Request(
+            rid=i, prompt=rng.randint(0, 1024, (int(rng.randint(4, 12)),)).tolist(),
+            max_new_tokens=int(rng.choice([4, 8, 12])), arrival_time=t, tenant=tenant,
+            priority=prio, deadline_s=(0.004 if i == 17 else None)))
+    return out
+
+
+def _qos_config(ns):
+    return ns.qos.QoSConfig(
+        tenants={"gold": ns.qos.TenantConfig(weight=3.0),
+                 "bronze": ns.qos.TenantConfig(weight=1.0, rate_tokens_per_s=400.0,
+                                               burst_tokens=60.0)},
+        max_waiting=4, max_queue_wait_s=0.4,
+        brownout=ns.qos.BrownoutConfig(enter_pressure=0.7, exit_pressure=0.4, cooldown_s=0.05,
+                                       capped_max_new=3, low_priority=2))
+
+
+def _record(ns, finished, pol):
+    reqs = [(r.rid, r.outcome, r.shed_reason, r.retry_after_s, r.max_new_tokens,
+             r.qos_orig_max_new, r.preemptions, r.drafted, r.accepted,
+             r.prompt[r.prompt_len:] + list(r.generated), r.first_token_time, r.finish_time)
+            for r in finished]
+    return dict(requests=reqs, sheds=dict(pol.shed_counts), rung=pol.brownout.step,
+                transitions=pol.brownout.transitions, debt=dict(sorted(pol._debt.items())))
+
+
+def _traced(ns, fn):
+    """Run with the incident timeline and request traces on; add the QoS
+    timeline and the qos-lane trace events to the record."""
+    ns.tl.reset()
+    ns.rt.reset()
+    ns.flags.set_flags({"FLAGS_incident_timeline": True, "FLAGS_request_trace": True})
+    try:
+        rec = fn(ns)
+    finally:
+        ns.flags.set_flags({"FLAGS_incident_timeline": False, "FLAGS_request_trace": False})
+    rec["timeline"] = [(r["kind"], r["severity"], r["payload"])
+                       for r in ns.tl.recorder().records() if r["source"] in ("qos", "scheduler")]
+    rec["qos_lane"] = [(r["name"], r["t"], r["attrs"]) for r in ns.rt.recorder().records()
+                       if r["lane"] == "qos"]
+    rec["slo"] = ns.rt.slo_breakdown(slo_ttft_ms=5.0, slo_tpot_ms=2.0)
+    return rec
+
+
+def _scheduler_overload(ns, model):
+    pol = ns.qos.QoSPolicy(_qos_config(ns))
+    clock = _clock()
+    sched = ns.sch.ContinuousBatchingScheduler(ns.eng.InferenceEngine(model, **ENGINE),
+                                               clock=clock, qos=pol)
+    stats = ns.sch.replay(sched, _overload_requests(ns), clock=clock)
+    return dict(_record(ns, sched.finished, pol), stats=stats,
+                report=ns.qos.tenant_report(sched.finished, pol.config))
+
+
+def _fleet_overload(ns, model):
+    pol = ns.qos.QoSPolicy(_qos_config(ns))
+    fleet = ns.fl.ReplicaFleet([ns.eng.InferenceEngine(model, **ENGINE) for _ in range(2)],
+                               clock=_clock(), qos=pol)
+    stats = ns.fl.fleet_replay(fleet, _overload_requests(ns))
+    return dict(_record(ns, fleet.finished, pol), stats=stats,
+                report=ns.qos.tenant_report(fleet.finished, pol.config))
+
+
+def _brownout_unwinds(ns, model):
+    """tests/test_qos.py::test_brownout_escalates_degrades_and_unwinds_exactly
+    as written, with its ladder and budgets. The JAX package turns spec
+    decoding back on at rung 0 while the survivor still runs (the gate is
+    per step, scheduler.py:924-927), so the survivor drafts 2 tokens there;
+    the port is held to that behaviour, not to the test's stale 0."""
+    pol = ns.qos.QoSPolicy(ns.qos.QoSConfig(brownout=ns.qos.BrownoutConfig(
+        enter_pressure=0.8, exit_pressure=0.5, cooldown_s=1.0, capped_max_new=4,
+        low_priority=2)))
+    t = [0.0]
+    sched = ns.sch.ContinuousBatchingScheduler(
+        ns.eng.InferenceEngine(model, **ENGINE), clock=lambda: t[0], qos=pol,
+        spec_decode=ns.sch.SpecDecodeConfig(draft_len=3, ngram=2))
+    R = ns.sch.Request
+    reqs = [R(rid=0, prompt=[5, 6, 5, 6, 5, 6, 5, 6], max_new_tokens=10, priority=0)]
+    sched.submit(reqs[0])
+    pol.note_slo_burn(1.0)
+    for now, new in ((1.0, None), (2.0, R(rid=1, prompt=[7] * 6, max_new_tokens=12, priority=2)),
+                     (3.0, None)):
+        t[0] = now
+        sched.step()
+        if new is not None:
+            reqs.append(new)
+            sched.submit(new)
+    reqs += [R(rid=2, prompt=[8] * 4, max_new_tokens=4, priority=2),
+             R(rid=3, prompt=[9] * 4, max_new_tokens=4, priority=0)]
+    sched.submit(reqs[2])
+    sched.submit(reqs[3])
+    pol.note_slo_burn(0.0)
+    rungs = []
+    while not sched.idle() or pol.brownout.step > 0:
+        t[0] += 2.0
+        sched.step()
+        rungs.append(pol.brownout.step)
+    return dict(_record(ns, reqs, pol), rungs=rungs)
+
+
+@pytest.mark.parametrize("scenario", [_scheduler_overload, _fleet_overload, _brownout_unwinds],
+                         ids=["scheduler_overload", "fleet_shared_policy", "brownout_unwinds"])
+def test_qos_scheduling_matches_jax(models, scenario):
+    want = _traced(J, lambda ns: scenario(ns, models["jax"]))
+    got = _traced(T, lambda ns: scenario(ns, models["torch"]))
+    # the JAX engine records its bucket dispatches (a compile, a shared
+    # program or a hit); the port's eager engine compiles nothing and
+    # records none
+    we, ge = want["slo"].pop("engine"), got["slo"].pop("engine")
+    assert we["bucket_hits"] + we["bucket_compiles"] > 0
+    assert ge == {"bucket_hits": 0, "bucket_compiles": 0, "compile_s_total": 0.0}
+    for key in want:
+        assert got[key] == want[key], key
+    outcomes = {r[1] for r in got["requests"]}
+    assert outcomes <= {"completed", "shed", "expired"}
+    if scenario is _brownout_unwinds:
+        # the reference-side behaviour the red JAX test misreads: spec
+        # decoding resumes at rung 0 and the survivor's ids stay exact
+        assert got["requests"][0][7] == want["requests"][0][7] == 2
+        assert got["rungs"][:3] == [2, 1, 0] and got["rung"] == 0
+        assert got["requests"][1][4] == 4 and got["requests"][1][5] == 12
+        assert got["requests"][2][1:3] == ("shed", "brownout")
+    else:
+        assert "shed" in outcomes and got["sheds"] and got["transitions"] > 0
+        assert all(r[2] is not None for r in got["requests"] if r[1] == "shed")

@@ -199,11 +199,11 @@ def test_predictor_run_matches_jax(models, tmp_path):
         ids[i, :len(p)] = p
     opts = dict(max_new_tokens=6, **ENGINE)
 
-    def run(mod, cfg_prefix, cpu=False):
+    def run(mod, cfg_prefix, cpu=False, replicas=1):
         cfg = mod.Config(cfg_prefix)
         if cpu:
             cfg.disable_gpu()
-        cfg.enable_llm_engine(**opts)
+        cfg.enable_llm_engine(llm_replicas=replicas, **opts)
         pred = mod.create_predictor(cfg)
         pred.get_input_handle("input_ids").copy_from_cpu(ids)
         pred.get_input_handle("seq_lens").copy_from_cpu(lens)
@@ -218,8 +218,8 @@ def test_predictor_run_matches_jax(models, tmp_path):
     for k, v in jm.state_dict().items():
         np.testing.assert_array_equal(np.asarray(reloaded.state_dict()[k]._value),
                                       np.asarray(v._value))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tinf.Config(prefix).enable_llm_engine(llm_replicas=2)
+    # the fleet-backed predictor (two engines over one model) gives the same ids
+    np.testing.assert_array_equal(run(tinf, prefix, cpu=True, replicas=2), want)
 
 
 def test_port_imports_no_jax_and_needs_a_device_choice():
@@ -244,6 +244,19 @@ eng = InferenceEngine(llama_tiny(num_key_value_heads=2).eval(), max_seq_len=32, 
                       max_batch=2)
 out = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]], max_new_tokens=4)
 assert [len(o) for o in out] == [4, 4], out
+# the telemetry, resilience, QoS and fleet modules, driven once
+import paddle_tpu_torch.telemetry.exporters, paddle_tpu_torch.telemetry.request_trace
+import paddle_tpu_torch.telemetry.timeline, paddle_tpu_torch.distributed.resilience.retry
+from paddle_tpu_torch.distributed.resilience import FaultPlan, install_plan, clear_plan
+from paddle_tpu_torch.inference import QoSConfig, QoSPolicy, ReplicaFleet
+fleet = ReplicaFleet([eng, InferenceEngine(eng._model, max_seq_len=32, block_size=8,
+                                           max_batch=2, kv_dtype="int8")],
+                     tiers=("prefill", "decode"), qos=QoSPolicy(QoSConfig(max_waiting=4)))
+install_plan(FaultPlan().add("fleet.kv_migrate.*", "corrupt"))
+assert [len(o) for o in fleet.generate([[1, 2, 3]], max_new_tokens=3)] == [3]
+clear_plan()
+assert fleet.migration_crc_rejects == 1
+assert "paddle_tpu_fleet_kv_migrations_total" in ptt.telemetry.to_prometheus()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad
 print("ok")
@@ -254,24 +267,37 @@ print("ok")
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
 
 
-def test_load_weights_swaps_in_place_and_drops_prefix_index(models):
+def test_load_weights_rebinds_one_engine_and_drops_prefix_index(models):
+    """C5: two engines over one model; swapping engine 0's weights leaves
+    the model's tensors and engine 1 (ids and tensors) untouched, as in
+    the JAX package, whose run of the same gives the same ids."""
     jm, tm = models
-    te = teng.InferenceEngine(tm, **ENGINE)
     prompts = _prompts()[:2]
-    before = te.generate(prompts, max_new_tokens=4)
-    assert te.pool.prefix_index_size() > 0
-    saved = {k: v.clone() for k, v in tm.state_dict().items()}
-    try:
-        other = tllama.LlamaForCausalLM(**jm.config, device="cpu").eval()
-        assert te.load_weights(other.state_dict()) == 1
-        assert te.pool.prefix_index_size() == 0 and te.pool.retained() == 0
-        ref = teng.InferenceEngine(other, **ENGINE).generate(prompts, max_new_tokens=4)
-        assert te.generate(prompts, max_new_tokens=4) == ref
-        with pytest.raises(ValueError, match="shape"):
-            te.load_weights({k: v[..., :1] for k, v in saved.items()})
-    finally:
-        te.load_weights(saved)
-    assert te.generate(prompts, max_new_tokens=4) == before
+    scaled = {k: np.asarray(v._value) * np.float32(1.5) for k, v in jm.state_dict().items()}
+    model_before = {k: v.clone() for k, v in tm.state_dict().items()}
+    t0, t1 = teng.InferenceEngine(tm, **ENGINE), teng.InferenceEngine(tm, **ENGINE)
+    j0, j1 = jeng.InferenceEngine(jm, **ENGINE), jeng.InferenceEngine(jm, **ENGINE)
+    before = t0.generate(prompts, max_new_tokens=4)
+    assert before == j0.generate(prompts, max_new_tokens=4)
+    assert t0.pool.prefix_index_size() > 0
+    p1 = dict(t1.params)
+    assert t0.load_weights(state_from_paddle_tpu(scaled)) == 1 == j0.load_weights(scaled)
+    assert t0.pool.prefix_index_size() == 0 and t0.pool.retained() == 0
+    swapped = t0.generate(prompts, max_new_tokens=4)
+    assert swapped == j0.generate(prompts, max_new_tokens=4) != before
+    # the other engine and the model keep the old weights (same tensors)
+    assert t1.generate(prompts, max_new_tokens=4) == before == j1.generate(prompts, max_new_tokens=4)
+    assert all(t1.params[k] is v for k, v in p1.items())
+    for k, v in tm.state_dict().items():
+        assert torch.equal(v, model_before[k]), k
+    ref = tllama.LlamaForCausalLM(**jm.config, device="cpu").eval()
+    ref.load_state_dict(state_from_paddle_tpu(scaled))
+    assert teng.InferenceEngine(ref, **ENGINE).generate(prompts, max_new_tokens=4) == swapped
+    with pytest.raises(ValueError, match="shape"):
+        t0.load_weights({k: v[..., :1] for k, v in model_before.items()})
+    assert t0.weights_version == 1  # a refused swap changes nothing
+    assert t0.load_weights(model_before) == 2
+    assert t0.generate(prompts, max_new_tokens=4) == before
 
 
 def test_io_bf16_round_trip_with_jax_package(tmp_path):
