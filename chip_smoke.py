@@ -160,6 +160,25 @@ Phases, one line each (any failure raises and exits non-zero):
                  with the decoder's caches (B1 at Sq 1 against the cache);
                  launches of B1-B3 and B5 split into training and decoding,
                  and B1 at the decode shapes against its plain version
+  static_llama_capture bench.py's _measure_passes at full width: jit.capture_program
+                 of serve_bf16's model (32 layers, bf16, seed 0) over ids [4, 512],
+                 the default pass pipeline (pipeline_ms, best of 3), Executor.run
+                 with FLAGS_program_passes on and off: bit-identical, the logits
+                 against the eager forward within LOGIT_REL_BOUND, fuse_attention
+                 32 matches and fuse_norm_matmul 1, B1 exactly 32 launches a run;
+                 replay against eager ms, capture and replay peaks
+  static_parity  the tiny f32 Llama's capture and 3 static fused-AdamW steps on
+                 the card and on the CPU: matches per pass equal, logits and
+                 losses within train_parity's limits; the unfused attention
+                 chain in f32 at B2 H12 S512 D64, its fuse_attention rewrite
+                 (one B1 launch) against the chain under TOL["f32"]
+  static_ernie_train ernie_seq128 as a static Program (program_guard, static.data,
+                 the MLM loss under auto_cast O1 bf16, AdamW.minimize with
+                 FLAGS_fused_optimizer) from build_ernie's weights and batch: 5
+                 Executor.run steps against 5 eager to_static steps from the same
+                 state, each loss within 1e-3; B1-B3 12 launches a step and B5
+                 one; ms/step, tokens/s, MFU, peak memory and idle share beside
+                 the eager step's
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -4611,6 +4630,320 @@ def transformer_base(ptt, ta, state):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the static graph (paddle.static): capture, the pass pipeline, the Executor
+# ---------------------------------------------------------------------------
+
+STATIC_IDS = (4, 512)  # the Llama capture's eval batch
+STATIC_MATCHES = {"fuse_attention": LLAMA3_8B["num_hidden_layers"], "fuse_norm_matmul": 1}
+
+
+def llama_8b(ptt):
+    """serve_bf16's model: Llama-3-8B width at 32 layers, bf16, seed 0."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ptt.seed(0)
+    return LlamaForCausalLM(**LLAMA3_8B, device="cuda", dtype="bfloat16").eval()
+
+
+def wall_ms(fn, iters=3) -> float:
+    """Host-clock ms of one call of `fn` ending in a synchronize, the best
+    of `iters` after one warm-up call."""
+    fn()
+    best = None
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def static_llama_capture(ptt, ta, model, state):
+    """bench.py:_measure_passes at full width: capture_program of the eval
+    forward over ids [4, 512], the default pipeline through Executor.run
+    with passes on and off; on and off bit-identical, the logits against
+    the eager forward within serve_bf16's cached-logits limit, the match
+    counts, B1 exactly once a layer a run."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.jit import capture_program
+    from paddle_tpu_torch.static import passes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L = LLAMA3_8B["num_hidden_layers"]
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, LLAMA3_8B["vocab_size"], STATIC_IDS)).cuda()
+    t0 = time.perf_counter()
+    program, feed_names, fetch_list = capture_program(model, ids, feed_names=["ids"])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated() / 1e9
+    fetch_vid = program.resolve_fetch(fetch_list[0])
+    best = None
+    for _ in range(3):  # the per-compile-miss cost: clone, every pass, the verifies
+        t0 = time.perf_counter()
+        work, res = passes.run_default_pipeline(program, fetch_vars=[fetch_vid],
+                                                feed_names=feed_names)
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    matches = {k: v for k, v in res.matches.items() if v}
+    if {k: matches.get(k, 0) for k in STATIC_MATCHES} != STATIC_MATCHES:
+        raise AssertionError(f"static_llama_capture: matches {matches}, expected {STATIC_MATCHES}")
+    exe = static.Executor()
+    feed = {"ids": ids}
+    exe.run(program, feed=feed, fetch_list=fetch_list, return_numpy=False)  # the compile miss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    (on,) = exe.run(program, feed=feed, fetch_list=fetch_list, return_numpy=False)
+    torch.cuda.synchronize()
+    launches = dict(ta.LAUNCHES)
+    replay_peak = torch.cuda.max_memory_allocated() / 1e9
+    ptt.set_flags({"FLAGS_program_passes": False})
+    try:
+        before = ta.LAUNCHES["flash_fwd"]
+        (off,) = exe.run(program, feed=feed, fetch_list=fetch_list, return_numpy=False)
+        off_flash = ta.LAUNCHES["flash_fwd"] - before
+        off_ms = wall_ms(lambda: exe.run(program, feed=feed, fetch_list=fetch_list,
+                                         return_numpy=False))
+    finally:
+        ptt.set_flags({"FLAGS_program_passes": True})
+    want = {k: (L if k == "flash_fwd" else 0) for k in launches}
+    if launches != want or off_flash != L:
+        raise AssertionError(f"static_llama_capture: launches {launches} (passes off: B1 "
+                             f"{off_flash}), expected {want}")
+    if not torch.equal(on, off):
+        raise AssertionError("static_llama_capture: passes on and off differ")
+    on_ms = wall_ms(lambda: exe.run(program, feed=feed, fetch_list=fetch_list,
+                                    return_numpy=False))
+    with torch.no_grad():
+        eager = model(ids)
+        eager_ms = wall_ms(lambda: model(ids))
+    rel = ((on.float() - eager.float()).norm(dim=-1)
+           / eager.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+    if not (rel <= LOGIT_REL_BOUND and torch.isfinite(on).all()):
+        raise AssertionError(f"static_llama_capture: replay vs eager logits rel err {rel} > "
+                             f"{LOGIT_REL_BOUND}")
+    state["static_llama_launches"] = launches
+    log("static_llama_capture", layers=L, ids=list(STATIC_IDS), capture_s=capture_s,
+        n_ops_recorded=len(program.ops), n_ops_after=len(work.ops), matches=matches,
+        rewritten_ops={k: v for k, v in res.rewritten_ops.items() if v}, pipeline_ms=best,
+        replay_ms=on_ms, replay_passes_off_ms=off_ms, eager_forward_ms=eager_ms,
+        passes_on_off_identical=True, replay_equals_eager=bool(torch.equal(on, eager)),
+        logits_max_row_rel_err=rel, rel_err_bound=LOGIT_REL_BOUND, launches=launches,
+        capture_peak_mem_gb=capture_peak, replay_peak_mem_gb=replay_peak,
+        weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9)
+    del program, work, on, off, eager
+    torch.cuda.empty_cache()
+
+
+STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ, STATIC_ERNIE_STEPS = 64, 128, 5
+
+
+def static_ernie_program(ptt, model):
+    """bench.py's ERNIE step written as a static Program: feeds, the MLM
+    loss under auto_cast(O1, bf16), AdamW.minimize with the fused bucket."""
+    from paddle_tpu_torch import static
+
+    ptt.set_flags({"FLAGS_fused_optimizer": True})
+    main = static.Program()
+    with static.program_guard(main, static.Program()):
+        ids = static.data("ids", [STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ], "int64")
+        labels = static.data("labels", [STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ], "int64")
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=labels)
+        ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                            moment2_dtype="bfloat16").minimize(loss)
+    return main, loss
+
+
+def static_ernie_train(ptt, ta, state):
+    """ernie_seq128 as a static Program: ERNIE-3.0-base MLM at B64 S128 from
+    build_ernie's seed-0 weights and batch, 5 Executor.run steps against 5
+    eager to_static steps from the same state: each loss within 1e-3, exact
+    launches a step (B1-B3 once a layer, B5 once), ms/step, tokens/s, MFU,
+    peak memory and idle share beside the eager step's."""
+    from paddle_tpu_torch import static
+
+    head_dim = ERNIE_BASE["hidden_size"] // 12
+    B, S, steps = STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ, STATIC_ERNIE_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step, ids, labels = build_ernie(ptt, B, S, 12, 512, 0.0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    emb = model.ernie.embeddings
+    n_params = sum(p.numel() for p in model.parameters())
+    flops_per_token = (6 * (n_params - emb.position_embeddings.weight.numel()
+                            - emb.token_type_embeddings.weight.numel())
+                       + 12 * S * ERNIE_BASE["hidden_size"] * ERNIE_BASE["num_hidden_layers"])
+
+    def timed(run):
+        """ms a step over steps 2..N to a synchronize (as ernie_train), the
+        losses read after"""
+        losses = []
+        for i in range(steps):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(run())
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], (time.perf_counter() - t0) * 1e3 / (steps - 1)
+
+    eager_losses, eager_ms = timed(lambda: step(ids, labels)[0])
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_prof = profile_train(lambda: step(ids, labels), eager_ms)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        model.load_state_dict(init)
+    del init
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    main, loss = static_ernie_program(ptt, model)
+    capture_s = time.perf_counter() - t0
+    exe = static.Executor()
+    feed = {"ids": ids, "labels": labels}
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    per_step = []
+
+    def run():
+        before = dict(ta.LAUNCHES)
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+        per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+        return lv
+
+    static_losses, static_ms = timed(run)
+    launches = dict(ta.LAUNCHES)
+    static_peak = torch.cuda.max_memory_allocated() / 1e9
+    rel = [abs(a - b) / abs(b) for a, b in zip(static_losses, eager_losses)]
+    if any(d != ERNIE_PER_STEP for d in per_step):
+        raise AssertionError(f"static_ernie_train: launches per step {per_step} != "
+                             f"{ERNIE_PER_STEP}")
+    if not (max(rel) <= TRAIN_LOSS_RTOL and all(math.isfinite(x) for x in static_losses)):
+        raise AssertionError(f"static_ernie_train: static losses {static_losses} vs eager "
+                             f"{eager_losses}: rel err {rel} > {TRAIN_LOSS_RTOL}")
+    static_prof = profile_train(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                                return_numpy=False), static_ms)
+    state["static_ernie_launches"] = launches
+
+    def figures(ms, peak, prof):
+        tps = B * S / (ms / 1e3)
+        return dict(ms_per_step=ms, tokens_per_sec=tps,
+                    mfu=tps * flops_per_token / PEAK_FLOPS[torch.bfloat16], peak_mem_gb=peak,
+                    device_busy_ms=prof["device_busy_ms"],
+                    device_idle_share=prof["device_idle_share"])
+
+    log("static_ernie_train", batch=B, seq=S, heads=12, head_dim=head_dim, steps=steps,
+        params_m=n_params / 1e6, capture_s=capture_s, n_ops_recorded=len(main.ops),
+        losses_static=static_losses, losses_eager=eager_losses, loss_rel_err=rel,
+        loss_rel_bound=TRAIN_LOSS_RTOL, launches=launches, launches_per_step=per_step[0],
+        flops_per_token=flops_per_token, static=figures(static_ms, static_peak, static_prof),
+        eager_ernie_seq128=figures(eager_ms, eager_peak, eager_prof))
+    log("static_ernie_train profile", static=static_prof, eager=eager_prof)
+    del main, loss, exe, model
+    torch.cuda.empty_cache()
+
+
+def static_parity(ptt, ta):
+    """The tiny f32 Llama's capture and a 3-step static training (fused
+    AdamW) on the card and on the CPU: matches per pass equal, logits and
+    losses within train_parity's limits; then the unfused attention chain
+    on the card, its fuse_attention rewrite (one B1 launch) against the
+    chain it replaced under TOL."""
+    import math as _math
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.jit import capture_program
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.static import passes
+
+    ptt.seed(3)
+    ref = LlamaForCausalLM(**TINY_LLAMA, device="cpu")
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, TINY_LLAMA["vocab_size"], (2, 64)))
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            ptt.set_device(dev)
+            model = LlamaForCausalLM(**TINY_LLAMA, device="meta")
+            model.load_state_dict({k: t.to(dev) for k, t in ref.state_dict().items()}, assign=True)
+            model.eval()
+            x = ids.to(dev)
+            prog, names, fetch = capture_program(model, x, feed_names=["ids"])
+            (logits,) = static.Executor().run(prog, feed={"ids": x}, fetch_list=fetch,
+                                              return_numpy=False)
+            matches = passes.LAST_RESULT[0].matches
+            model.train()
+            ptt.set_flags({"FLAGS_fused_optimizer": True})
+            main = static.Program()
+            with static.program_guard(main, static.Program()):
+                fi = static.data("ids", [2, 64], "int64")
+                loss, _ = model(fi, labels=fi)
+                ptt.optimizer.AdamW(TRAIN_LR, parameters=model.parameters(),
+                                    weight_decay=0.01).minimize(loss)
+            exe = static.Executor()
+            losses = [exe.run(main, feed={"ids": x}, fetch_list=[loss])[0].item()
+                      for _ in range(3)]
+            runs[dev] = dict(matches=matches, logits=logits.float().cpu(), losses=losses,
+                             params={n: p.detach().float().cpu()
+                                     for n, p in model.named_parameters()})
+    finally:
+        ptt.set_device("cuda")
+        ptt.set_flags({"FLAGS_fused_optimizer": False})
+    card, cpu = runs["cuda"], runs["cpu"]
+    logit_rel = ((card["logits"] - cpu["logits"]).norm() / cpu["logits"].norm()).item()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    dp = torch.cat([(card["params"][n] - w).abs().reshape(-1) for n, w in cpu["params"].items()])
+    rec = dict(matches_card=card["matches"], matches_cpu=cpu["matches"],
+               logits_rel_l2_err=logit_rel, losses_card=card["losses"], losses_cpu=cpu["losses"],
+               loss_max_rel_err=loss_rel, param_max_abs_diff_over_lr=dp.max().item() / TRAIN_LR,
+               param_mean_abs_diff_over_lr=dp.mean().item() / TRAIN_LR)
+    if not (card["matches"] == cpu["matches"] and card["matches"]["fuse_attention"] == 2
+            and logit_rel <= TRAIN_LOSS_RTOL and loss_rel <= TRAIN_LOSS_RTOL
+            and rec["param_max_abs_diff_over_lr"] <= TRAIN_PARAM_MAX_OVER_LR
+            and rec["param_mean_abs_diff_over_lr"] <= TRAIN_PARAM_MEAN_OVER_LR
+            and card["losses"][-1] < card["losses"][0]):
+        raise AssertionError(f"static_parity: card and CPU disagree: {rec}")
+
+    # the unfused chain -> the flash dispatch, at ERNIE's head layout in f32
+    b, h, s, d = 2, 12, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = {n: torch.randn(b, h, s, d, generator=gen, device="cuda") for n in "qkv"}
+    chain = static.Program()
+    with static.program_guard(chain, static.Program()):
+        q, k, v = (static.data(n, [b, h, s, d], "float32") for n in "qkv")
+        p = ptt.nn.functional.softmax(ptt.scale(ptt.matmul(q, k, transpose_y=True),
+                                                1.0 / _math.sqrt(d)))
+        out = ptt.matmul(p, v)
+    fv = chain.resolve_fetch(out)
+    work, res = passes.run_default_pipeline(chain, fetch_vars=[fv])
+    if res.matches.get("fuse_attention") != 1 or [op.name for op in work.ops] != [
+            "fused_flash_attention"]:
+        raise AssertionError(f"static_parity: the unfused chain was not rewritten: {res}")
+    params = [chain._var_tensors[vid] for vid in chain.param_vars]
+    want = chain.replay_env({chain.feed_vars[n]: t for n, t in qkv.items()}, params)[fv]
+    before = ta.LAUNCHES["flash_fwd"]
+    got = work.replay_env({work.feed_vars[n]: t for n, t in qkv.items()}, params)[fv]
+    torch.cuda.synchronize()
+    flash = ta.LAUNCHES["flash_fwd"] - before
+    if flash != 1:
+        raise AssertionError(f"static_parity: the fused op launched B1 {flash} times, not once")
+    cmp = compare("static_parity fused_flash_attention", got, want, TOL["f32"])
+    log("static_parity", tiny=dict(TINY_LLAMA), steps=3, **rec,
+        tol=dict(loss_rel=TRAIN_LOSS_RTOL, param_max_over_lr=TRAIN_PARAM_MAX_OVER_LR,
+                 param_mean_over_lr=TRAIN_PARAM_MEAN_OVER_LR),
+        unfused_chain=dict(shape=[b, h, s, d], dtype="float32", flash_launches=flash,
+                           variant=ta.kernel_variant("flash_fwd", torch.float32, d), **cmp))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
@@ -4618,6 +4951,7 @@ def main(argv=None) -> int:
                                         "train_parity,train_bf16,train_recompute,"
                                         "train_fp16_scaler,train_o2_resume,amp_parity,"
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
+                                        "static_llama_capture,static_parity,static_ernie_train,"
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
                                         "ernie_finetune,nn_surface,transformer_parity,"
@@ -4772,8 +5106,9 @@ def main(argv=None) -> int:
         check_rms_norm(IF, gen, "bf16 R64 D16392 bias (wide rows)", 64, 16392, torch.bfloat16,
                        True)
         torch.cuda.empty_cache()
+    if "serve_bf16" in phases or "static_llama_capture" in phases:
+        model = serve_bf16(ptt, ta, state) if "serve_bf16" in phases else llama_8b(ptt)
     if "serve_bf16" in phases:
-        model = serve_bf16(ptt, ta, state)
         if "serve_int8" in phases:
             serve_int8(ta, model, state)
         if "telemetry_ab" in phases:
@@ -4785,6 +5120,9 @@ def main(argv=None) -> int:
         if "qos_bf16" in phases:
             qos_bf16(ptt, ta, model, state)
             qos_predictor(ptt)
+    if "static_llama_capture" in phases:
+        static_llama_capture(ptt, ta, model, state)
+    if "serve_bf16" in phases or "static_llama_capture" in phases:
         del model
         torch.cuda.empty_cache()
     if "predictor_f32" in phases:
@@ -4812,6 +5150,10 @@ def main(argv=None) -> int:
         ernie_train(ptt, ta, state, "ernie_seq128", (64,), 128, 12, 512, 0.0)
     if "ernie_seq4096" in phases:  # bench.py:2151-2159
         ernie_train(ptt, ta, state, "ernie_seq4096", (3, 2), 4096, 6, 4096, 0.1)
+    if "static_parity" in phases:
+        static_parity(ptt, ta)
+    if "static_ernie_train" in phases:  # ernie_seq128 as a static Program
+        static_ernie_train(ptt, ta, state)
     if "resnet_parity" in phases:
         resnet_parity(ptt)
     if "resnet50_train" in phases:  # bench.py:1974-2006
@@ -4863,7 +5205,9 @@ def main(argv=None) -> int:
                "ppocr_e2e": state.get("ppocr_launches", {}),
                "ocr_train": state.get("ocr_train_launches", {}),
                "ppyoloe": state.get("ppyoloe_launches", {}),
-               "transformer_base": state.get("transformer_launches", {})}
+               "transformer_base": state.get("transformer_launches", {}),
+               "static_llama_capture": state.get("static_llama_launches", {}),
+               "static_ernie_train": state.get("static_ernie_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():

@@ -94,7 +94,7 @@ mask.
 import torch
 
 from . import (amp, core, device, distributed, framework, incubate, inference, jit, models, nn,
-               ops, optimizer, quantization, regularizer, telemetry, utils, vision)
+               ops, optimizer, quantization, regularizer, static, telemetry, utils, vision)
 from .core import autograd_engine as _autograd_engine
 from .framework.compat import (check_shape, disable_signal_handler, get_cuda_rng_state,
                                set_cuda_rng_state)
@@ -155,7 +155,8 @@ def disable_static(place=None):
 
 
 def enable_static():
-    """The static-graph slice is not ported: the port stays in dygraph."""
+    """A no-op, as in the JAX package: static programs are captured under
+    paddle.static.program_guard, in dygraph."""
 
 
 def is_compiled_with_cuda():

@@ -78,3 +78,29 @@ define_flag(
     "params, moments and grads of one (dtype, weight decay, lr scale, clip) bucket "
     "update in one fused AdamW kernel launch per step",
 )
+define_flag("FLAGS_check_nan_inf", False,
+            "scan what a static run writes back for nan/inf (the training guardian; not "
+            "ported yet: the static Executor raises while it is on)")
+define_flag(
+    "FLAGS_verify_program",
+    True,
+    "run the static.analysis verifier (SSA single-assignment, use-before-def, feed/param "
+    "coverage, dangling fetch/grad/opt refs, op-output arity, donation hazards) before "
+    "Executor._compile, so a malformed program fails with a diagnostic naming the op/var; "
+    "costs O(#ops) Python per compile miss",
+)
+define_flag(
+    "FLAGS_program_passes",
+    True,
+    "run the static.passes rewrite pipeline (dead-op elimination, scalar constant folding, "
+    "redundant cast/reshape elimination, DRR fusion patterns: attention cluster -> flash, "
+    "norm+matmul, bias+dropout+residual) over a CLONE of the recorded Program on every "
+    "Executor compile miss; the caller's Program is never mutated. Disable to replay the "
+    "capture exactly as recorded",
+)
+define_flag(
+    "FLAGS_print_after_pass",
+    "",
+    "comma-separated pass names (or 'all') whose to_text() diff is printed to stderr after "
+    "the pass rewrites a program; empty disables",
+)

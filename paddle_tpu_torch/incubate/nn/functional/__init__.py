@@ -176,3 +176,8 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6, begin_norm_axis
 
 
 __all__ = ["fused_linear_cross_entropy", "fused_rms_norm"]
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ....core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

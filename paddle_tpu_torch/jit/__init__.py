@@ -1,4 +1,4 @@
-"""paddle.jit: to_static (jit/api.py)."""
-from .api import StaticFunction, enable_to_static, to_static
+"""paddle.jit: to_static and capture_program (jit/api.py)."""
+from .api import StaticFunction, capture_program, enable_to_static, to_static
 
-__all__ = ["StaticFunction", "enable_to_static", "to_static"]
+__all__ = ["StaticFunction", "capture_program", "enable_to_static", "to_static"]

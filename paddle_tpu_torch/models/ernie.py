@@ -33,7 +33,7 @@ class ErnieEmbeddings(nn.Layer):
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
+            position_ids = torch.arange(input_ids.shape[1], device=input_ids.device).unsqueeze(0)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         emb = (self.word_embeddings(input_ids) + self.position_embeddings(position_ids)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as TF
 
+from ..core import record as _record
 from ..framework import device as _device
 from ..framework import dtype as _dtype
 from ..framework import random as _random
@@ -98,7 +99,7 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
 
         if cache is None:
-            q, k = _rope(q, k)
+            q, k = _record.apply("rope", _rope, q, k)
             # GQA: k/v stay at num_kv_heads; the flash kernel maps q heads
             # to their kv head itself
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True, training=self.training)

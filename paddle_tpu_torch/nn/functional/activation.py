@@ -213,3 +213,8 @@ __all__ = ["relu", "relu6", "sigmoid", "tanh", "gelu", "silu", "swish", "mish", 
            "hardsigmoid", "hardswish", "softplus", "softsign", "thresholded_relu", "log_sigmoid",
            "maxout", "softmax", "log_softmax", "glu", "prelu", "rrelu", "relu_", "elu_",
            "softmax_", "tanh_", "hardtanh_", "leaky_relu_", "thresholded_relu_"]
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

@@ -135,3 +135,8 @@ def flash_attention_with_sparse_mask(query, key, value, attn_mask_start_row_indi
                                device=p.device) < 1.0 - dropout_p
         p = torch.where(drop_keep, p / (1.0 - dropout_p), 0.0)
     return (p.to(v.dtype) @ v).transpose(1, 2)
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

@@ -423,3 +423,8 @@ def gather_tree(ids, parents):
         out[t] = ids[t].gather(1, beam)
         beam = parents[t].gather(1, beam)
     return out
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

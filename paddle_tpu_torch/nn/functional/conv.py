@@ -154,3 +154,8 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0
                      dilation=1, output_size=None, data_format="NCDHW", name=None):
     return _conv_transpose(x, weight, bias, stride, padding, output_padding, dilation, groups, 3,
                            data_format, output_size)
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

@@ -517,3 +517,8 @@ def triplet_margin_with_distance_loss(input, positive, negative, distance_functi
     if swap:
         dn = torch.minimum(dn, _t(dist(pos, neg)))
     return _reduce(torch.clamp_min(dp - dn + margin, 0.0), reduction)
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

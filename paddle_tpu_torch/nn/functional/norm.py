@@ -129,3 +129,8 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0, data_format="NCHW
     padded = TF.pad(sq, pads)
     acc = sum(padded.narrow(1, i, x.shape[1]) for i in range(size))
     return x / torch.pow(k + alpha * acc / size, beta)
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

@@ -308,3 +308,8 @@ def fractional_max_pool2d(x, output_size, kernel_size=None, random_u=None, retur
 def fractional_max_pool3d(x, output_size, kernel_size=None, random_u=None, return_mask=False,
                           name=None):
     return _fractional_max_pool(x, output_size, kernel_size, random_u, return_mask, 3)
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ...core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

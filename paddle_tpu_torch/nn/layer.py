@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import record as _record
 from ..framework import device as _device
 from ..framework import dtype as _dtype
 from ..framework.io import numpy_to_tensor
@@ -66,7 +67,8 @@ class Layer(torch.nn.Module):
         if str(device) == "meta":
             value = torch.empty(tuple(shape), dtype=dt, device="meta")
         else:
-            value = init(shape, dt, _device.resolve(device))
+            with _record.suspended():  # initialization is no op of a static capture
+                value = init(shape, dt, _device.resolve(device))
         p = Parameter(value, trainable=trainable)
         # what the optimizer reads (paddle_tpu/nn/layer.py:132-135); a dtype
         # cast (Module.to, amp.decorate) keeps the object and these with it

@@ -13,9 +13,7 @@ Its forward casts its inputs as the op "linear" under AMP: bf16 under O1.
 from __future__ import annotations
 
 import torch
-from torch.nn import functional as TF
 
-from ...amp import amp_cast_inputs
 from .. import functional as F
 from ...ops import manipulation as _manip
 from ..initializer import Constant, XavierUniform
@@ -38,10 +36,8 @@ class Linear(Layer):
                                           default_initializer=Constant(0.0), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = amp_cast_inputs("linear", [x, self.weight, self.bias])
-        # torch's linear takes [out, in]: the transpose is a view, and the
-        # GEMM reads it as a transposed operand (no copy)
-        return TF.linear(x, w.t(), b)
+        # F.linear: one recorded "linear" op under a static capture
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}"

@@ -266,3 +266,8 @@ def lu_unpack(x, y, unpack_ludata=True, unpack_pivots=True, name=None):
 __all__ = [_n for _n, _v in list(globals().items())
            if not _n.startswith("_") and getattr(_v, "__module__", None) == __name__
            and callable(_v)]
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ..core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

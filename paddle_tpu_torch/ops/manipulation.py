@@ -160,7 +160,12 @@ def broadcast_tensors(inputs):
 
 
 def cast(x, dtype):
-    return amp1("cast", _t(x)).to(_dtype.convert_dtype(dtype))
+    """A new tensor (a view when the dtype is already `dtype`: torch's .to
+    would hand x itself back, and a static capture records no op that
+    returns its input)."""
+    x = amp1("cast", _t(x))
+    out = x.to(_dtype.convert_dtype(dtype))
+    return x.view_as(x) if out is x else out
 
 
 def gather(x, index, axis=0, name=None):
@@ -557,3 +562,8 @@ reverse = flip
 __all__ = [_n for _n, _v in list(globals().items())
            if not _n.startswith("_") and getattr(_v, "__module__", None) == __name__
            and callable(_v)]
+
+# each public op is one recorded op of a static capture (core/record.py)
+from ..core.record import record_module as _record_module  # noqa: E402
+
+_record_module(globals())

@@ -266,6 +266,21 @@ class Optimizer:
             return grad + wd * torch.sign(pv)
         return grad + wd * pv
 
+    def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        """Under a static program_guard: append backward and this
+        optimizer's update to the program (static/optimizer_hooks.py, as
+        paddle_tpu/optimizer/optimizer.py:224-232 sends it). Otherwise
+        `loss.backward()` and a step."""
+        from ..core import state as _state
+
+        if _state.get_program_capture() is not None:
+            from ..static.optimizer_hooks import static_minimize
+
+            return static_minimize(self, loss, parameters)
+        loss.backward()
+        self.step()
+        return None, None
+
     def clear_grad(self, set_to_zero=False) -> None:
         for p in self._params:
             p.grad = None
