@@ -179,6 +179,24 @@ Phases, one line each (any failure raises and exits non-zero):
                  state, each loss within 1e-3; B1-B3 12 launches a step and B5
                  one; ms/step, tokens/s, MFU, peak memory and idle share beside
                  the eager step's
+  deploy_ernie   BASELINE configs[1] deployed as PaddleNLP deploys it: the
+                 ernie_finetune classifier (116.76 M) in bf16, eval; jit.save
+                 with two [-1, -1] int64 InputSpecs, create_predictor, runs at
+                 B32 S128 and B4 S512 (no mask: B1 12 a run), logits against
+                 the eager forward; an artifact saved on the CPU run by the
+                 Predictor on the card (B1 12 a run); jit.load's TranslatedLayer
+                 and a clone once; save/load s, artifact bytes, run ms, peak;
+                 the registered flash op's host dispatch cost against the
+                 ctypes call, in turns
+  deploy_llama_static static_llama_capture's model at 4 layers (the weights
+                 travel inside the artifact) captured over ids [-1, 512]:
+                 save_inference_model -> load_inference_model -> Executor.run
+                 at batch 4 and 2, create_predictor over the same files; B1 4 a
+                 run, the graph's B1 nodes equal to fuse_attention's matches,
+                 logits against the eager forward within LOGIT_REL_BOUND
+  deploy_parity  the tiny f32 Llama (save_inference_model) and ERNIE
+                 classifier (jit.save) exported on the card and on the CPU from
+                 one set of weights: outputs within TOL["f32"], equal op lists
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -4481,6 +4499,38 @@ DECODE_SOURCES, DECODE_BEAM = 8, 4
 DECODE_STEPS = S2S_SEQ + 50  # the paper's input length + 50
 
 
+def decode_dispatch(ptt, ta, s2s, model, src, want_ids, b1_calls, turns=8):
+    """The beam decode's seconds with every B1 call through the registered
+    op (as a traced graph runs it) and through the direct ctypes launch
+    (the eager path), in turns (op, direct, direct, op): the op's dispatch
+    cost on the path with the most B1 calls. Both give the main run's ids;
+    the medians are compared."""
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            ids = s2s.beam_search(ptt, model, src, DECODE_BEAM, DECODE_STEPS,
+                                  first_step_cache=False)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(ids, want_ids):
+            raise AssertionError("transformer_base: a timed decode's ids differ")
+        return time.perf_counter() - t0
+
+    direct = ta.direct_launch
+    secs = {"op": [], "direct": []}
+    run()  # a warm-up decode
+    try:
+        for i in range(turns):
+            key = "op" if i % 4 in (0, 3) else "direct"
+            ta.direct_launch = (lambda *ts: False) if key == "op" else direct
+            secs[key].append(run())
+    finally:
+        ta.direct_launch = direct
+    op_s, direct_s = float(np.median(secs["op"])), float(np.median(secs["direct"]))
+    return dict(b1_calls=b1_calls, op_s=secs["op"], direct_s=secs["direct"],
+                op_over_direct_us_a_call=(op_s - direct_s) * 1e6 / b1_calls)
+
+
 def transformer_base(ptt, ta, state):
     """Transformer-base training then beam-search decoding on the card."""
     s2s = _tests_module("torch_seq2seq")
@@ -4606,6 +4656,7 @@ def transformer_base(ptt, ta, state):
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "fused_adamw"):
         if not total[k]:
             raise AssertionError(f"transformer_base: {k} was never launched")
+    dispatch = decode_dispatch(ptt, ta, s2s, model, src, ids, decode_launches["flash_fwd"])
     state["transformer_launches"] = total
     log("transformer_base", **cfg, params_m=n_params / 1e6, batch=S2S_BATCH, seq=S2S_SEQ,
         head_dim=d // heads, variant=variant, init_s=init_s, losses=losses,
@@ -4619,7 +4670,7 @@ def transformer_base(ptt, ta, state):
                     beam_tokens_per_sec=DECODE_SOURCES * DECODE_BEAM * steps / decode_s,
                     source_tokens_per_sec=DECODE_SOURCES * steps / decode_s,
                     lengths=lengths[:, 0].tolist(), best_ids_0=ids[0, :12, 0].tolist(),
-                    launches=decode_launches),
+                    launches=decode_launches, dispatch=dispatch),
         b1_decode_shapes=[{k: r.get(k) for k in ("case", "variant", "ms", "plain_ms",
                                                   "library_ms", "bound_ms", "max_abs_err")}
                           for r in decode_b1],
@@ -4944,6 +4995,382 @@ def static_parity(ptt, ta):
                            variant=ta.kernel_variant("flash_fwd", torch.float32, d), **cmp))
 
 
+# ---------------------------------------------------------------------------
+# deployment: jit.save / save_inference_model -> the frozen-program Predictor
+# ---------------------------------------------------------------------------
+
+DEPLOY_CLS_RUNS = ((32, 128), (4, 512))  # ernie_finetune's batch, then PaddleNLP's longest
+DEPLOY_LLAMA_LAYERS = 4  # weights inside the artifact: 2.27 GB at 4 layers (vocabulary 32000)
+DEPLOY_LLAMA_BATCHES = (4, 2)  # the -1 batch dim run at static_llama_capture's batch and half
+
+
+def _artifact_bytes(prefix) -> dict:
+    return {ext: os.path.getsize(prefix + ext) for ext in (".pdmodel", ".pdiparams", ".pdmeta")
+            if os.path.exists(prefix + ext)}
+
+
+def _predictor_run(pred, inputs):
+    """Predictor.run on numpy inputs through the handles (the outputs stay
+    on the card until fetched)."""
+    for name, a in zip(pred.get_input_names(), inputs):
+        pred.get_input_handle(name).copy_from_cpu(a)
+    pred.run()
+
+
+def _predictor_fetch(pred):
+    """The first output as an f32 CPU tensor (a bf16 output is exact in f32)."""
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    return torch.from_numpy(np.asarray(out, dtype=np.float32))
+
+
+def _predictor_logits(pred, inputs):
+    _predictor_run(pred, inputs)
+    return _predictor_fetch(pred)
+
+
+def _predictor_split_ms(pred, model, inputs, iters=10) -> dict:
+    """One Predictor run's host-clock ms in parts, each ended by a
+    synchronize, the median of `iters` rounds that take the parts in turn:
+    staging the numpy inputs in the handles (`stage_ms`); run(), which
+    copies them to the card and runs the program (`run_ms`); the first
+    output's copy to the host (`fetch_ms`); the program alone on inputs
+    already on the card (`program_ms`) and the eager forward on the same
+    (`eager_ms`)."""
+    dev_ins = [torch.from_numpy(a).cuda() for a in inputs]
+    handles = [pred.get_input_handle(n) for n in pred.get_input_names()]
+    out = pred.get_output_handle(pred.get_output_names()[0])
+    parts = {k: [] for k in ("stage_ms", "run_ms", "fetch_ms", "program_ms", "eager_ms")}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        parts[key].append((time.perf_counter() - t0) * 1e3)
+
+    def stage():
+        for h, a in zip(handles, inputs):
+            h.copy_from_cpu(a)
+
+    with torch.no_grad():
+        for i in range(iters + 1):
+            timed("stage_ms", stage)
+            timed("run_ms", pred.run)
+            timed("fetch_ms", out.copy_to_cpu)
+            timed("program_ms", lambda: pred._module(*dev_ins))
+            timed("eager_ms", lambda: model(*dev_ins))
+    return {k: float(np.median(v[1:])) for k, v in parts.items()}  # round 0 warms up
+
+
+def _one_run(ta, fn, what, want_b1):
+    """fn() with every launch count read around it: exactly `want_b1` B1
+    launches and no other kernel."""
+    before = dict(ta.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {k: ta.LAUNCHES[k] - before[k] for k in ta.LAUNCHES}
+    want = {k: (want_b1 if k == "flash_fwd" else 0) for k in delta}
+    if delta != want:
+        raise AssertionError(f"{what}: launches {delta}, expected {want}")
+    return out
+
+
+def flash_dispatch_us(ta, b, s, h, d, calls=200, turns=4):
+    """Host microseconds a B1 call spends before its launch, through the
+    registered op (the eager path's entry) and through the ctypes wrapper
+    directly, in turns (A B B A ...) at one shape: the op's dispatch cost is
+    the difference. Each block is `calls` enqueued calls ended by a
+    synchronize, timed on the host clock."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    fns = {"op": lambda: torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, False, scale, 0.0, 0),
+           "direct": lambda: ta._flash_cuda(q, k, v, False, scale, 0.0, 0)}
+    times = {"op": [], "direct": []}
+    for name in fns.values():
+        name()
+    torch.cuda.synchronize()
+    for i in range(turns):
+        for key in (("op", "direct") if i % 2 == 0 else ("direct", "op")):
+            fn = fns[key]
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[key].append((time.perf_counter() - t0) * 1e6 / calls)
+            torch.cuda.synchronize()
+    op_us, direct_us = float(np.median(times["op"])), float(np.median(times["direct"]))
+    return dict(shape=[b, s, h, d], op_us=op_us, direct_us=direct_us,
+                dispatch_us=op_us - direct_us, op_us_all=times["op"],
+                direct_us_all=times["direct"])
+
+
+def deploy_ernie(ptt, ta, state):
+    """PaddleNLP's deployment of BASELINE configs[1]: the ernie_finetune
+    model (ErnieForSequenceClassification(ernie_3_0_base()), 116.76 M, full
+    width and depth) in bf16, eval; jit.save with two [-1, -1] int64
+    InputSpecs, create_predictor(Config(prefix + ".pdmodel")), runs at B32
+    S128 then B4 S512 (unpadded: no attention_mask, so attention is B1): B1
+    exactly 12 a run, the logits within TOL["bf16"] of the eager forward
+    (bit-equality reported). A second artifact saved with the CPU as the
+    device must launch B1 12 times a run on the card too (the kernel, not
+    the plain chain, is in the artifact). Then jit.load's TranslatedLayer
+    once and a clone() once; the registered op's dispatch cost."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification, ernie_3_0_base
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.static import io as sio
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.seed(0)
+    model = ErnieForSequenceClassification(ernie_3_0_base(), num_classes=2).to(torch.bfloat16)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = ERNIE_BASE["num_hidden_layers"]
+    spec = [InputSpec([-1, -1], "int64", "input_ids"), InputSpec([-1, -1], "int64", "token_type_ids")]
+    rng = np.random.RandomState(21)
+    batches = [(rng.randint(1, ERNIE_BASE["vocab_size"], (b, s)).astype(np.int64),
+                rng.randint(0, 2, (b, s)).astype(np.int64)) for b, s in DEPLOY_CLS_RUNS]
+    with torch.no_grad():
+        eager = [model(*(torch.from_numpy(a).cuda() for a in ins)).float().cpu()
+                 for ins in batches]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        prefix = os.path.join(tmp, "ernie_cls")
+        t0 = time.perf_counter()
+        ptt.jit.save(model, prefix, input_spec=spec)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix + ".pdmodel"))
+        load_s = time.perf_counter() - t0
+        graph_b1 = sio.graph_ops(pred._module).count("paddle_tpu_torch.flash_fwd.default")
+        if graph_b1 != L:
+            raise AssertionError(f"deploy_ernie: the exported graph names B1 {graph_b1} times, "
+                                 f"not {L}")
+        # the CPU-saved artifact of the same weights
+        cpu_prefix = os.path.join(tmp, "ernie_cls_cpu")
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        ptt.jit.save(cpu_model, cpu_prefix, input_spec=spec)
+        cpu_save_s = time.perf_counter() - t0
+        del cpu_model
+        t0 = time.perf_counter()
+        cpu_pred = inference.create_predictor(inference.Config(cpu_prefix + ".pdmodel"))
+        cpu_load_s = time.perf_counter() - t0
+        for ins in batches:  # warm-up: the first call of each shape
+            _predictor_logits(pred, ins)
+        # the main path: every count 0 before it, read after it
+        ta.reset_launch_counts()
+        got = [_one_run(ta, lambda ins=ins: _predictor_logits(pred, ins),
+                        f"deploy_ernie B{ins[0].shape[0]} S{ins[0].shape[1]}", L)
+               for ins in batches]
+        got_cpu = _one_run(ta, lambda: _predictor_logits(cpu_pred, batches[0]),
+                           "deploy_ernie CPU-saved artifact B32 S128", L)
+        launches = {k: v for k, v in ta.LAUNCHES.items() if v}
+        runs = []
+        for (b, s), g, e, ins in zip(DEPLOY_CLS_RUNS, got, eager, batches):
+            cmp = compare(f"deploy_ernie B{b} S{s} logits vs eager", g, e, TOL["bf16"])
+            runs.append(dict(batch=b, seq=s, bit_equal_to_eager=bool(torch.equal(g, e)),
+                             **_predictor_split_ms(pred, model, ins), **cmp))
+        cmp_cpu = compare("deploy_ernie CPU-saved artifact vs eager", got_cpu, eager[0], TOL["bf16"])
+        translated = ptt.jit.load(prefix)
+        with torch.no_grad():
+            tl_out = _one_run(ta, lambda: translated(*(torch.from_numpy(a).cuda()
+                                                       for a in batches[1])).float().cpu(),
+                              "deploy_ernie TranslatedLayer B4 S512", L)
+        cmp_tl = compare("deploy_ernie TranslatedLayer vs eager", tl_out, eager[1], TOL["bf16"])
+        clone = pred.clone()
+        cl_out = _one_run(ta, lambda: _predictor_logits(clone, batches[0]),
+                          "deploy_ernie clone B32 S128", L)
+        if not torch.equal(cl_out, got[0]):
+            raise AssertionError("deploy_ernie: the clone's logits differ from the predictor's")
+        nbytes_art = _artifact_bytes(prefix)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dispatch = [flash_dispatch_us(ta, 32, 128, 12, 64), flash_dispatch_us(ta, 1, 1024, 32, 128)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state["deploy_ernie_launches"] = launches
+    log("deploy_ernie", card=state.get("smi"), params=n_params, dtype="bfloat16", layers=L,
+        save_s=save_s, load_s=load_s, artifact_bytes=nbytes_art, graph_b1_nodes=graph_b1,
+        runs=runs, cpu_saved=dict(save_s=cpu_save_s, load_s=cpu_load_s,
+                                  bit_equal_to_eager=bool(torch.equal(got_cpu, eager[0])),
+                                  **cmp_cpu),
+        translated_layer=dict(bit_equal_to_eager=bool(torch.equal(tl_out, eager[1])), **cmp_tl),
+        clone_equal=True, launches=launches, peak_mem_gb=peak, flash_dispatch=dispatch)
+    del model, pred, cpu_pred, translated, clone
+    torch.cuda.empty_cache()
+
+
+def deploy_llama_static(ptt, ta, state):
+    """static_llama_capture's Program at Llama-3-8B width, depth cut to
+    DEPLOY_LLAMA_LAYERS (the weights travel inside the artifact), ids
+    [-1, 512]: save_inference_model -> load_inference_model ->
+    Executor.run at batch 4 and 2, and create_predictor over the same
+    files. B1 exactly once a layer a run; the exported graph's B1 nodes
+    equal fuse_attention's matches; the logits within serve_bf16's
+    cached-logits limit of the eager forward (bit-equality reported)."""
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.static import io as sio
+    from paddle_tpu_torch.static import passes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L = DEPLOY_LLAMA_LAYERS
+    ptt.seed(0)
+    model = LlamaForCausalLM(**dict(LLAMA3_8B, num_hidden_layers=L), device="cuda",
+                             dtype="bfloat16").eval()
+    seq = STATIC_IDS[1]
+    main = static.Program()
+    with static.program_guard(main, static.Program()):
+        ids = static.data("ids", [-1, seq], "int64")
+        logits = model(ids)
+    rng = np.random.RandomState(0)
+    feeds = [rng.randint(0, LLAMA3_8B["vocab_size"], (b, seq)).astype(np.int64)
+             for b in DEPLOY_LLAMA_BATCHES]
+    with torch.no_grad():
+        eager = [model(torch.from_numpy(x).cuda()).float().cpu() for x in feeds]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        prefix = os.path.join(tmp, "llama")
+        t0 = time.perf_counter()
+        static.save_inference_model(prefix, [ids], [logits], program=main)
+        save_s = time.perf_counter() - t0
+        matches = passes.LAST_RESULT[0].matches["fuse_attention"]
+        t0 = time.perf_counter()
+        prog, feed_names, fetch = static.load_inference_model(prefix)
+        load_s = time.perf_counter() - t0
+        graph_b1 = sio.graph_ops(prog._module).count("paddle_tpu_torch.flash_fwd.default")
+        if not graph_b1 == matches == L:
+            raise AssertionError(f"deploy_llama_static: B1 nodes {graph_b1}, fuse_attention "
+                                 f"matches {matches}, layers {L}")
+        exe = static.Executor()
+
+        def run_on_card(x):
+            return exe.run(prog, feed={"ids": x}, fetch_list=fetch, return_numpy=False)[0]
+
+        def run(x):
+            return run_on_card(x).float().cpu()
+
+        for x in feeds:  # warm-up
+            run(x)
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        pred_load_s = time.perf_counter() - t0
+        # the main path: every count 0 before it, read after it
+        ta.reset_launch_counts()
+        got = [_one_run(ta, lambda x=x: run(x), f"deploy_llama_static Executor B{x.shape[0]}", L)
+               for x in feeds]
+        got_pred = _one_run(ta, lambda: _predictor_logits(pred, [feeds[0]]),
+                            "deploy_llama_static Predictor B4", L)
+        launches = {k: v for k, v in ta.LAUNCHES.items() if v}
+        runs = []
+        for x, g, e in zip(feeds, got, eager):
+            rel = ((g - e).norm(dim=-1) / e.norm(dim=-1).clamp_min(1e-30)).max().item()
+            if not (rel <= LOGIT_REL_BOUND and torch.isfinite(g).all()):
+                raise AssertionError(f"deploy_llama_static B{x.shape[0]}: logits rel err {rel} > "
+                                     f"{LOGIT_REL_BOUND}")
+            ids_dev = torch.from_numpy(x).cuda()
+            with torch.no_grad():
+                eager_ms = wall_ms(lambda: model(ids_dev))
+            # the run to a synchronize, logits left on the card; then their copy to the host
+            runs.append(dict(batch=x.shape[0], seq=seq, logits_max_row_rel_err=rel,
+                             bit_equal_to_eager=bool(torch.equal(g, e)),
+                             run_ms=wall_ms(lambda x=x: run_on_card(x)), eager_ms=eager_ms,
+                             fetch_ms=wall_ms(lambda x=x: run(x)) - wall_ms(
+                                 lambda x=x: run_on_card(x))))
+        if not torch.equal(got_pred, got[0]):
+            raise AssertionError("deploy_llama_static: the Predictor's logits differ from "
+                                 "Executor.run's")
+        pred_ms = wall_ms(lambda: _predictor_run(pred, [feeds[0]]))
+        nbytes_art = _artifact_bytes(prefix)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state["deploy_llama_launches"] = launches
+    log("deploy_llama_static", card=state.get("smi"), layers=L, seq=seq, dtype="bfloat16",
+        weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9, save_s=save_s,
+        load_s=load_s, predictor_load_s=pred_load_s, artifact_bytes=nbytes_art,
+        fuse_attention_matches=matches, graph_b1_nodes=graph_b1, runs=runs,
+        predictor_run_ms=pred_ms, predictor_equals_executor=True, rel_err_bound=LOGIT_REL_BOUND,
+        launches=launches, peak_mem_gb=peak)
+    del model, main, prog, pred
+    torch.cuda.empty_cache()
+
+
+def deploy_parity(ptt, ta, state):
+    """The tiny f32 Llama (save_inference_model, ids [-1, 64]) and the tiny
+    ERNIE classifier (jit.save, [-1, -1] inputs) exported on the card and on
+    the CPU from one set of weights, each loaded and run where it was
+    saved: outputs within TOL["f32"], the exported graphs' op lists equal."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification, ErnieModel
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.static import io as sio
+
+    ptt.seed(5)
+    ptt.set_device("cpu")
+    llama_ref = LlamaForCausalLM(**TINY_LLAMA, device="cpu").eval().state_dict()
+    ernie_ref = ErnieForSequenceClassification(ErnieModel(**TINY_ERNIE), num_classes=3).state_dict()
+    rng = np.random.RandomState(6)
+    ids = rng.randint(0, TINY_LLAMA["vocab_size"], (3, 64)).astype(np.int64)
+    cls_in = [rng.randint(1, TINY_ERNIE["vocab_size"], (4, 48)).astype(np.int64),
+              rng.randint(0, 2, (4, 48)).astype(np.int64)]
+    runs = {}
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        for dev in ("cuda", "cpu"):
+            ptt.set_device(dev)
+            llama = LlamaForCausalLM(**TINY_LLAMA, device="meta")
+            llama.load_state_dict({k: t.to(dev) for k, t in llama_ref.items()}, assign=True)
+            llama.eval()
+            main = static.Program()
+            with static.program_guard(main, static.Program()):
+                fi = static.data("ids", [-1, 64], "int64")
+                out = llama(fi)
+            static.save_inference_model(os.path.join(tmp, f"llama_{dev}"), [fi], [out],
+                                        program=main)
+            prog, _, fetch = static.load_inference_model(os.path.join(tmp, f"llama_{dev}"))
+            ernie = ErnieForSequenceClassification(ErnieModel(**TINY_ERNIE), num_classes=3)
+            ernie.load_state_dict({k: t.to(dev) for k, t in ernie_ref.items()})
+            prefix = os.path.join(tmp, f"ernie_{dev}")
+            ptt.jit.save(ernie, prefix, input_spec=[InputSpec([-1, -1], "int64"),
+                                                    InputSpec([-1, -1], "int64")])
+            tl = ptt.jit.load(prefix)
+            # the main path (the card's two artifact runs): counts 0 before, read after
+            ta.reset_launch_counts()
+            (logits,) = static.Executor().run(prog, feed={"ids": ids}, fetch_list=fetch,
+                                              return_numpy=False)
+            cls = tl(*cls_in)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in ta.LAUNCHES.items() if v}
+            runs[dev] = dict(llama=logits.float().cpu(), ernie=cls.float().cpu(),
+                             llama_ops=sio.graph_ops(prog._module), ernie_ops=sio.graph_ops(tl.program))
+    finally:
+        ptt.set_device("cuda")
+        shutil.rmtree(tmp, ignore_errors=True)
+    card, cpu = runs["cuda"], runs["cpu"]
+    for key in ("llama_ops", "ernie_ops"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"deploy_parity: {key} differ card vs CPU: "
+                                 f"{sorted(set(card[key]) ^ set(cpu[key]))}")
+    n_b1 = TINY_LLAMA["num_hidden_layers"] + TINY_ERNIE["num_hidden_layers"]
+    if launches != {"flash_fwd": n_b1}:
+        raise AssertionError(f"deploy_parity: launches {launches}, expected B1 {n_b1}")
+    cmp = {m: compare(f"deploy_parity {m} card vs CPU", card[m], cpu[m], TOL["f32"])
+           for m in ("llama", "ernie")}
+    state["deploy_parity_launches"] = launches
+    log("deploy_parity", tiny_llama=dict(TINY_LLAMA), tiny_ernie=dict(TINY_ERNIE), dtype="float32",
+        ops_equal=True, n_ops={k: len(card[k]) for k in ("llama_ops", "ernie_ops")},
+        launches=launches, **cmp)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
@@ -4952,6 +5379,7 @@ def main(argv=None) -> int:
                                         "train_fp16_scaler,train_o2_resume,amp_parity,"
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
                                         "static_llama_capture,static_parity,static_ernie_train,"
+                                        "deploy_ernie,deploy_llama_static,deploy_parity,"
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
                                         "ernie_finetune,nn_surface,transformer_parity,"
@@ -4980,7 +5408,7 @@ def main(argv=None) -> int:
     log("build", seconds=time.perf_counter() - t0,
         ptxas={k: ptxas_summary(v) for k, v in logs.items()})
 
-    state: dict = {}
+    state: dict = {"smi": smi}
     records = {}
     if "kernels" in phases:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5154,6 +5582,12 @@ def main(argv=None) -> int:
         static_parity(ptt, ta)
     if "static_ernie_train" in phases:  # ernie_seq128 as a static Program
         static_ernie_train(ptt, ta, state)
+    if "deploy_ernie" in phases:  # BASELINE configs[1] deployed: jit.save -> Predictor
+        deploy_ernie(ptt, ta, state)
+    if "deploy_llama_static" in phases:
+        deploy_llama_static(ptt, ta, state)
+    if "deploy_parity" in phases:
+        deploy_parity(ptt, ta, state)
     if "resnet_parity" in phases:
         resnet_parity(ptt)
     if "resnet50_train" in phases:  # bench.py:1974-2006
@@ -5207,7 +5641,10 @@ def main(argv=None) -> int:
                "ppyoloe": state.get("ppyoloe_launches", {}),
                "transformer_base": state.get("transformer_launches", {}),
                "static_llama_capture": state.get("static_llama_launches", {}),
-               "static_ernie_train": state.get("static_ernie_launches", {})}
+               "static_ernie_train": state.get("static_ernie_launches", {}),
+               "deploy_ernie": state.get("deploy_ernie_launches", {}),
+               "deploy_llama_static": state.get("deploy_llama_launches", {}),
+               "deploy_parity": state.get("deploy_parity_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():

@@ -14,6 +14,7 @@ ordinary route. No value changes dtype on the way.
 """
 from __future__ import annotations
 
+import io
 import os
 import pickle
 
@@ -175,10 +176,15 @@ def _unwrap(obj):
 
 # ---------------------------------------------------------------------------
 
+def host_array(t: torch.Tensor):
+    """A tensor as the pickle stores it: a numpy array, or for bf16 the
+    payload that pickles as an ml_dtypes.bfloat16 array."""
+    return _BF16Payload.of(t) if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+
+
 def _to_host(obj):
     if isinstance(obj, torch.Tensor):
-        data = _BF16Payload.of(obj) if obj.dtype == torch.bfloat16 else obj.detach().cpu().numpy()
-        return {_TENSOR_TAG: True, "data": data, "stop_gradient": not obj.requires_grad,
+        return {_TENSOR_TAG: True, "data": host_array(obj), "stop_gradient": not obj.requires_grad,
                 "name": None}
     if isinstance(obj, dict):
         return {k: _to_host(v) for k, v in obj.items()}
@@ -213,14 +219,30 @@ def save(obj, path: str, protocol: int = 4) -> None:
         _Pickler(f, protocol=protocol).dump(_to_host(obj))
 
 
+def dumps(obj, protocol: int = 4) -> bytes:
+    """`save` into bytes."""
+    buf = io.BytesIO()
+    _Pickler(buf, protocol=protocol).dump(_to_host(obj))
+    return buf.getvalue()
+
+
+def _load_file(f, return_numpy):
+    if _ml_dtypes() is not None:
+        data = pickle.load(f)
+    else:
+        data = _unwrap(_Unpickler(f).load())
+    return _from_host(data, return_numpy)
+
+
 def load(path: str, return_numpy: bool = False):
     """Tagged tensors come back as torch tensors (numpy with
     return_numpy); bare numpy arrays, as save_llm writes them, stay numpy.
     Only load files this program or the JAX package wrote: unpickling runs
     code."""
     with open(path, "rb") as f:
-        if _ml_dtypes() is not None:
-            data = pickle.load(f)
-        else:
-            data = _unwrap(_Unpickler(f).load())
-    return _from_host(data, return_numpy)
+        return _load_file(f, return_numpy)
+
+
+def loads(data: bytes, return_numpy: bool = False):
+    """`load` from bytes that `dumps` (or the JAX package's pickle) wrote."""
+    return _load_file(io.BytesIO(data), return_numpy)

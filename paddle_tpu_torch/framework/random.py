@@ -9,6 +9,7 @@ keys from the same seed, so parity tests carry weights across
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Union
 
 import torch
@@ -71,3 +72,20 @@ def next_uint32() -> int:
     paddle_tpu/optimizer/optimizer.py:464-469). Drawn on the host, so a
     step on the card does not wait for the device to hand a seed back."""
     return int(torch.randint(0, 2 ** 32, (1,), dtype=torch.int64, generator=generator("cpu")))
+
+
+def drawn_for_real():
+    """A context in which a draw made while torch.export traces (under its
+    fake tensors) is made for real, from the generator's state at that
+    point: the exported graph then holds the numbers as a constant, as the
+    JAX package's export closes over its key, and does not draw anew from
+    the global generator at every run. Outside a trace it does nothing."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    stack = contextlib.ExitStack()
+    if detect_fake_mode() is not None:
+        stack.enter_context(unset_fake_temporarily())
+        stack.enter_context(disable_proxy_modes_tracing())
+    return stack

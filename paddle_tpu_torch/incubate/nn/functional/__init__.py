@@ -4,10 +4,12 @@ its hand-written kernel (TPU kernel B6).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ....amp import amp_cast_inputs
-from ....ops.attention import _DTYPE_CODE
+from ....ops.attention import _DTYPE_CODE, direct_launch
 from ....ops.launches import LAUNCHES
 
 # ---------------------------------------------------------------------------
@@ -140,6 +142,34 @@ def _rms_norm_cuda(x, w, b, eps):
     return out
 
 
+# B6's forward as a registered op, `torch.ops.paddle_tpu_torch.rms_norm_fwd`,
+# so an exported fused_rms_norm keeps its kernel (as ops/attention.py's
+# flash_fwd): the kernel on CUDA or a raise, the plain version on the CPU,
+# a fake that gives the shape only.
+@torch.library.custom_op("paddle_tpu_torch::rms_norm_fwd", mutates_args=(), device_types="cuda")
+def _rms_norm_fwd_op(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     eps: float) -> torch.Tensor:
+    return _rms_norm_cuda(x, w, b, eps)
+
+
+@_rms_norm_fwd_op.register_kernel("cpu")
+def _rms_norm_fwd_op_cpu(x, w, b, eps):
+    return _rms_norm_ref(x, w, b, eps)
+
+
+@_rms_norm_fwd_op.register_fake
+def _rms_norm_fwd_op_fake(x, w, b, eps):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _rms_norm_fwd(x, w, b, eps):
+    """B6's forward: the kernel directly for an eager call on the card,
+    else the registered op (ops.attention.direct_launch)."""
+    if direct_launch(x, w, b):
+        return _rms_norm_cuda(x, w, b, eps)
+    return _rms_norm_fwd_op(x, w, b, eps)
+
+
 class _FusedRMSNorm(torch.autograd.Function):
     """Kernel forward, backward recomputed through the plain version (the
     JAX package's custom_vjp, :45-63)."""
@@ -148,7 +178,7 @@ class _FusedRMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, b, eps):
         ctx.save_for_backward(x, w, b)
         ctx.eps = eps
-        return (_rms_norm_cuda if x.is_cuda else _rms_norm_ref)(x, w, b, eps)
+        return _rms_norm_fwd(x, w, b, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -170,8 +200,11 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6, begin_norm_axis
     if begin_norm_axis not in (-1, x.ndim - 1):
         raise NotImplementedError("fused_rms_norm normalizes the last axis")
     d = x.shape[-1]
-    out = _FusedRMSNorm.apply(x.reshape(-1, d).contiguous(), norm_weight, norm_bias,
-                              float(epsilon))
+    args = (x.reshape(-1, d).contiguous(), norm_weight, norm_bias, float(epsilon))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:3]):
+        out = _FusedRMSNorm.apply(*args)
+    else:
+        out = _rms_norm_fwd(*args)
     return out.reshape(x.shape)
 
 

@@ -1,34 +1,53 @@
-"""Deployment surface for LLM serving (counterpart of the LLM half of
-paddle_tpu/inference/__init__.py).
+"""paddle.inference (counterpart of paddle_tpu/inference/__init__.py):
+the frozen-program Predictor and the LLM serving predictor.
 
-`save_llm(model, prefix)` writes the JAX package's artifact:
+A `.pdmodel` artifact (jit.save or static.save_inference_model: a
+torch.export archive with its weights, and a JSON `.pdmeta`) is served
+by `Predictor`: `create_predictor(Config(prefix))`, input and output
+handles, `run()`. The artifact's kernels are registered ops
+(`paddle_tpu_torch.flash_fwd`), so an artifact saved on the CPU runs
+the flash kernel B1 once the Predictor has moved it to the card. A
+JAX-package `.pdmodel` (StableHLO bytes) raises ArtifactFormatError.
+
+`save_llm(model, prefix)` writes the JAX package's LLM artifact:
 `{prefix}.pdllm` (JSON config) and `{prefix}.pdiparams` (pickled numpy
 weights in paddle layout), so either package serves the other's files.
 `Config(prefix).enable_llm_engine(...)` + `create_predictor(config)` give
 an LLMPredictor whose run() greedy-decodes through the paged-KV engine,
 or with `llm_replicas > 1` or `qos=` through a ReplicaFleet of engines
-over the same weights (inference/fleet.py, inference/qos.py). The
-predictor runs on cuda:0 unless `Config.disable_gpu()` asks for the CPU.
+over the same weights (inference/fleet.py, inference/qos.py).
+
+Both predictors run on cuda:0 unless `Config.disable_gpu()` asks for the
+CPU; without a card they raise rather than run on the CPU. The Config
+switches of engines the port has no counterpart of (TensorRT, MKLDNN,
+IR optimisation, memory pools) are accepted and recorded, and change
+nothing, as in the JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..framework import device as _device
+from ..framework import dtype as _dtype
 from ..framework import io as fio
+from ..static import io as _sio
 from ..utils.convert import state_from_paddle_tpu, state_to_paddle_tpu
 from .engine import InferenceEngine
 from .fleet import NoHealthyReplica, ReplicaFleet, ReplicaStatus, fleet_replay
 from .qos import BrownoutConfig, QoSConfig, QoSPolicy, TenantConfig
 from .scheduler import ContinuousBatchingScheduler, Request, SpecDecodeConfig
 
-__all__ = ["Config", "Tensor", "LLMPredictor", "create_predictor", "save_llm", "load_llm",
-           "PrecisionType", "InferenceEngine", "ContinuousBatchingScheduler",
+__all__ = ["Config", "Tensor", "Predictor", "PredictorPool", "LLMPredictor", "create_predictor",
+           "save_llm", "load_llm", "PrecisionType", "PlaceType", "DataType", "XpuConfig",
+           "get_version", "get_trt_compile_version", "get_trt_runtime_version",
+           "get_num_bytes_of_data_type", "convert_to_mixed_precision", "_get_phi_kernel_name",
+           "InferenceEngine", "ContinuousBatchingScheduler",
            "Request", "SpecDecodeConfig", "ReplicaFleet", "ReplicaStatus", "NoHealthyReplica",
            "fleet_replay", "QoSConfig", "QoSPolicy", "TenantConfig", "BrownoutConfig"]
 
@@ -40,32 +59,94 @@ class PrecisionType:
     Int8 = 3
 
 
-class Config:
-    """paddle.inference.Config for a save_llm artifact: `Config(prefix)`,
-    or a directory holding exactly one `.pdllm`."""
+class PlaceType:
+    CPU = 0
+    GPU = 1
+    TPU = 1  # the accelerator place, as the JAX package names it
+    XPU = 2
+    CUSTOM = 9
 
-    def __init__(self, model_arg: Optional[str] = None):
+
+class Config:
+    """paddle.inference.Config: `Config(prefix)` (with or without
+    `.pdmodel`), `Config(model_file, params_file)`, or a directory
+    holding exactly one `.pdmodel` (or one `.pdllm`)."""
+
+    def __init__(self, model_arg: Optional[str] = None, params_file: Optional[str] = None):
         self._prefix = None
+        self._params_file = params_file
         if model_arg is not None:
             if os.path.isdir(model_arg):
-                cands = [f for f in os.listdir(model_arg) if f.endswith(".pdllm")]
-                if len(cands) != 1:
-                    raise ValueError(
-                        f"Config(model_dir): expected exactly one .pdllm under {model_arg}, found {cands}")
-                self._prefix = os.path.join(model_arg, cands[0][: -len(".pdllm")])
+                self._prefix = self._prefix_in_dir(model_arg)
+            elif model_arg.endswith(".pdmodel"):
+                self._prefix = model_arg[: -len(".pdmodel")]
             else:
                 self._prefix = model_arg
         self._device = "gpu"
         self._device_id = 0
+        self._inert: Dict[str, object] = {}
         self._llm_opts: Dict[str, object] = {}
+
+    @staticmethod
+    def _prefix_in_dir(model_dir):
+        for ext in (".pdmodel", ".pdllm"):
+            cands = [f for f in os.listdir(model_dir) if f.endswith(ext)]
+            if len(cands) > 1:
+                raise ValueError(
+                    f"Config(model_dir): expected exactly one {ext} under {model_dir}, found {cands}")
+            if cands:
+                return os.path.join(model_dir, cands[0][: -len(ext)])
+        raise ValueError(f"Config(model_dir): no .pdmodel or .pdllm under {model_dir}")
+
+    # ---- model paths ----
+    def set_model(self, model_arg, params_file=None):
+        self.__init__(model_arg, params_file)
+
+    def model_dir(self):
+        return os.path.dirname(self._prefix or "")
+
+    def prog_file(self):
+        return (self._prefix or "") + ".pdmodel"
+
+    def params_file(self):
+        return self._params_file or ((self._prefix or "") + ".pdiparams")
 
     # ---- device selection ----
     def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0,
                        precision=PrecisionType.Float32):
         self._device, self._device_id = "gpu", int(device_id)
 
+    def enable_xpu(self, *args, **kwargs):
+        self._device = "gpu"  # the accelerator
+
+    def enable_custom_device(self, device_type, device_id=0):
+        self._device, self._device_id = "gpu", int(device_id)
+
     def disable_gpu(self):
         self._device = "cpu"
+
+    def gpu_device_id(self):
+        return self._device_id
+
+    # ---- switches of engines the port has no counterpart of: recorded ----
+    def enable_tensorrt_engine(self, *args, **kwargs):
+        self._inert["tensorrt"] = True
+
+    def enable_mkldnn(self):
+        self._inert["mkldnn"] = True
+
+    def switch_ir_optim(self, flag=True):
+        self._inert["ir_optim"] = flag
+
+    def enable_memory_optim(self, flag=True):
+        self._inert["memory_optim"] = flag
+
+    def set_cpu_math_library_num_threads(self, n):
+        self._inert["cpu_threads"] = n
+
+    def summary(self) -> str:
+        return (f"model: {self.prog_file()}\ndevice: {self._device}:{self._device_id}\n"
+                f"inert knobs: {self._inert}")
 
     def use_gpu(self) -> bool:
         return self._device != "cpu"
@@ -96,27 +177,42 @@ class Config:
 
 
 class Tensor:
-    """Predictor I/O handle: host-side staging with copy_from_cpu/copy_to_cpu."""
+    """Predictor I/O handle: host-side staging with copy_from_cpu/copy_to_cpu.
+    A bfloat16 output comes back as an ml_dtypes.bfloat16 array where
+    ml_dtypes is installed (the JAX package's type), else widened to
+    float32, which holds every bfloat16 value exactly."""
 
     def __init__(self, name, dtype=None):
         self._name = name
         self._dtype = dtype
         self._value = None
+        self._declared_shape = None
 
     def name(self):
         return self._name
 
+    def reshape(self, shape):
+        self._declared_shape = tuple(shape)
+
     def copy_from_cpu(self, arr):
         a = np.asarray(arr)
-        self._value = a.astype(self._dtype) if self._dtype is not None else a
+        # numpy has no bfloat16 without ml_dtypes: the Predictor casts on the card
+        self._value = a.astype(self._dtype) if self._dtype not in (None, "bfloat16") else a
 
     def copy_to_cpu(self):
-        if self._value is None:
+        v = self._value
+        if v is None:
             raise RuntimeError(f"output handle '{self._name}' has no data — call run() first")
-        return np.asarray(self._value)
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16 and fio._ml_dtypes() is None:
+                return v.float().cpu().numpy()
+            return fio.tensor_to_numpy(v)
+        return np.asarray(v)
 
     def shape(self):
-        return [] if self._value is None else list(np.asarray(self._value).shape)
+        if self._value is not None:
+            return list(self._value.shape)
+        return list(self._declared_shape or [])
 
 
 def save_llm(model, prefix: str) -> str:
@@ -231,12 +327,202 @@ class LLMPredictor:
         return [out] if inputs is not None else None
 
 
-def create_predictor(config: Config) -> LLMPredictor:
-    """A Config pointing at a save_llm artifact gets the engine-backed
-    LLMPredictor. Frozen-program artifacts (.pdmodel) are not served by
-    this slice."""
-    if not config.is_llm():
-        raise NotImplementedError(
-            "create_predictor serves save_llm artifacts (.pdllm); frozen .pdmodel programs "
-            "are not ported yet")
-    return LLMPredictor(config)
+class Predictor:
+    """paddle_infer.Predictor over a frozen program (`.pdmodel` + `.pdmeta`
+    of jit.save or static.save_inference_model). The program runs on
+    `Config.device()`: an artifact saved on another device is moved there
+    (its weights and its graph's device literals). A clone shares the
+    loaded program and has handles of its own."""
+
+    def __init__(self, config: Config):
+        if config._prefix is None:
+            raise ValueError("Config has no model path")
+        self._config = config
+        self._device = config.device()
+        ep, meta = _sio.read_artifact(config.prog_file(), config._prefix, self._device)
+        self._init(ep.module(), meta)
+
+    def _init(self, module, meta):
+        self._module = module
+        self._meta = meta
+        # static artifacts name their feeds; jit.save's are positional
+        names = meta.get("feed_names")
+        if names is None:
+            names = [f"input_{i}" for i in range(len(meta.get("in_dtypes", [])))]
+        self._input_names = list(names)
+        n_out = meta.get("n_fetch", meta.get("n_outputs", 1))
+        self._output_names = [f"output_{i}" for i in range(n_out)]
+        dtypes = meta.get("in_dtypes")
+        self._inputs = {n: Tensor(n, dtypes[i] if dtypes else None)
+                        for i, n in enumerate(self._input_names)}
+        self._outputs = {n: Tensor(n) for n in self._output_names}
+
+    def get_input_names(self) -> List[str]:
+        return list(self._input_names)
+
+    def get_output_names(self) -> List[str]:
+        return list(self._output_names)
+
+    def get_input_handle(self, name) -> Tensor:
+        return self._inputs[name]
+
+    def get_output_handle(self, name) -> Tensor:
+        return self._outputs[name]
+
+    def run(self, inputs: Optional[list] = None):
+        """Run the program on the handles' inputs (or on `inputs`, in
+        input-name order, returning the outputs as numpy arrays)."""
+        if inputs is not None:
+            for n, a in zip(self._input_names, inputs):
+                self._inputs[n].copy_from_cpu(a)
+        args = []
+        for n in self._input_names:
+            h = self._inputs[n]
+            if h._value is None:
+                raise RuntimeError(f"input '{n}' not set — copy_from_cpu it first")
+            t = fio.numpy_to_tensor(h._value)
+            args.append(t.to(self._device, _dtype.convert_dtype(h._dtype) if h._dtype else None))
+        with torch.no_grad():  # a frozen program: no autograd graph, no saved activations
+            outs = pytree.tree_leaves(self._module(*args))
+        for n, o in zip(self._output_names, outs):
+            self._outputs[n]._value = o
+        if inputs is not None:
+            return [self._outputs[n].copy_to_cpu() for n in self._output_names]
+        return None
+
+    def clone(self) -> "Predictor":
+        c = Predictor.__new__(Predictor)
+        c._config, c._device = self._config, self._device
+        c._init(self._module, self._meta)
+        return c
+
+    def clear_intermediate_tensor(self):
+        return None
+
+    def try_shrink_memory(self):
+        return None
+
+
+def create_predictor(config: Config):
+    """paddle.inference.create_predictor: a save_llm artifact (`.pdllm`)
+    gets the engine-backed LLMPredictor, a frozen program (`.pdmodel`) the
+    Predictor."""
+    if config.is_llm():
+        return LLMPredictor(config)
+    return Predictor(config)
+
+
+class PredictorPool:
+    """`size` predictors over one Config: the first loads the program, the
+    rest are its clones (one program, handles of their own)."""
+
+    def __init__(self, config: Config, size: int = 1):
+        if size < 1:
+            raise ValueError("PredictorPool size must be >= 1")
+        main = Predictor(config)
+        self._preds = [main] + [main.clone() for _ in range(size - 1)]
+
+    def retrieve(self, idx: int) -> Predictor:
+        return self._preds[idx]
+
+
+class DataType:
+    """paddle_infer.DataType (paddle_tensor.h PaddleDType)."""
+
+    FLOAT64 = -1  # not in the C enum; get_num_bytes_of_data_type takes it
+    FLOAT32 = 0
+    INT64 = 1
+    INT32 = 2
+    UINT8 = 3
+    INT8 = 4
+    FLOAT16 = 5
+    BFLOAT16 = 6
+    BOOL = 7
+
+
+_DATA_TYPE_BYTES = {DataType.FLOAT64: 8, DataType.FLOAT32: 4, DataType.INT64: 8,
+                    DataType.INT32: 4, DataType.UINT8: 1, DataType.INT8: 1,
+                    DataType.FLOAT16: 2, DataType.BFLOAT16: 2, DataType.BOOL: 1}
+
+
+def get_num_bytes_of_data_type(dtype) -> int:
+    if dtype not in _DATA_TYPE_BYTES:
+        raise ValueError(f"unknown inference DataType: {dtype}")
+    return _DATA_TYPE_BYTES[dtype]
+
+
+def get_version() -> str:
+    """The version banner: the JAX package's version number (paddle.version
+    is not ported yet) and the torch build the port runs on."""
+    return f"version: 0.1.0\ncommit: torch {torch.__version__}\n"
+
+
+def get_trt_compile_version():
+    """The port links no TensorRT: (0, 0, 0), as the JAX package."""
+    return (0, 0, 0)
+
+
+def get_trt_runtime_version():
+    return (0, 0, 0)
+
+
+def _get_phi_kernel_name(op_name: str) -> str:
+    """A legacy fluid op name -> its phi kernel name (the op name itself
+    but for the renamed legacy ops)."""
+    legacy = {
+        "matmul_v2": "matmul", "elementwise_add": "add", "elementwise_sub": "subtract",
+        "elementwise_mul": "multiply", "elementwise_div": "divide", "reduce_sum": "sum",
+        "reduce_mean": "mean", "fill_constant": "full",
+    }
+    return legacy.get(op_name, op_name)
+
+
+class XpuConfig:
+    """paddle.inference.XpuConfig: its settings are recorded, and change
+    nothing."""
+
+    def __init__(self, **kwargs):
+        self.device_id = kwargs.pop("device_id", 0)
+        self.l3_size = kwargs.pop("l3_size", 0)
+        self.l3_autotune_size = kwargs.pop("l3_autotune_size", 0)
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+
+
+def convert_to_mixed_precision(model_file: str, params_file: str, mixed_model_file: str,
+                               mixed_params_file: str, mixed_precision=PrecisionType.Half,
+                               backend=None, keep_io_types: bool = True, black_list=None,
+                               **kwargs):
+    """paddle.inference.convert_to_mixed_precision: the separate parameter
+    file (.pdiparams) is cast to float16 or bfloat16 (f32 entries outside
+    `black_list`); the program is copied as it is, so the weights inside
+    it keep their precision (a UserWarning says so), and its .pdmeta
+    records the precision."""
+    import shutil
+    import warnings
+
+    target = {PrecisionType.Half: torch.float16,
+              PrecisionType.Bfloat16: torch.bfloat16}.get(mixed_precision)
+    if target is None:
+        raise ValueError("mixed_precision must be PrecisionType.Half or Bfloat16")
+    black = set(black_list or ())
+    warnings.warn(
+        "convert_to_mixed_precision converts only the SEPARATE parameter payload "
+        f"({params_file!r}); the program blob is copied as-is, so any weights baked into the "
+        "program as constants keep their exported precision and see no size/precision change",
+        UserWarning, stacklevel=2)
+    shutil.copyfile(model_file, mixed_model_file)
+    src_meta = os.path.splitext(model_file)[0] + ".pdmeta"
+    dst_meta = os.path.splitext(mixed_model_file)[0] + ".pdmeta"
+    if os.path.exists(src_meta):
+        meta = _sio.read_meta(os.path.splitext(model_file)[0])
+        meta["mixed_precision"] = int(mixed_precision)
+        with open(dst_meta, "w") as f:
+            json.dump(meta, f)
+
+    def cast(name, t):
+        return t if name in black or t.dtype != torch.float32 else t.to(target)
+
+    from ..jit.save_load import load_state
+
+    fio.save({k: cast(k, v) for k, v in load_state(params_file).items()}, mixed_params_file)

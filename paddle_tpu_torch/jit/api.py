@@ -107,3 +107,17 @@ def capture_program(function, *example_args, feed_names=None):
     if isinstance(function, torch.nn.Module):
         main.name_vars(function.named_parameters())
     return main, names, fetch_list
+
+
+def not_to_static(fn):
+    """paddle.jit.not_to_static: marks `fn` to run as Python under
+    to_static (every captured function runs eagerly here, so the mark is
+    all there is to it)."""
+    fn._paddle_not_to_static = True
+    return fn
+
+
+def ignore_module(modules):
+    """paddle.jit.ignore_module: modules whose calls to_static leaves
+    alone; accepted, as in the JAX package."""
+    return None

@@ -79,6 +79,16 @@ def _rope(q, k, pos_base=10000.0, positions=None, max_pos=None):
     return rot(q), rot(k)
 
 
+def _split_heads(x, n_heads):
+    """[B, S, n_heads * D] -> [B, S, n_heads, D] (a view)."""
+    return x.unflatten(-1, (n_heads, x.shape[-1] // n_heads))
+
+
+def _merge_heads(x):
+    """[B, S, H, D] -> [B, S, H * D]."""
+    return x.flatten(2)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, hidden_size, num_heads, num_kv_heads=None, device=None, dtype=None):
         super().__init__()
@@ -93,19 +103,23 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(num_heads * self.head_dim, hidden_size, **kw)
 
     def forward(self, x, cache=None, positions=None):
-        b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        # heads split and merged without reading B or S: a captured Program
+        # records a "reshape" whose replay takes any batch and length (no
+        # literal of the dry run's), so a -1 feed dim stays free when the
+        # Program is exported
+        q = _record.apply("reshape", _split_heads, self.q_proj(x), self.num_heads)
+        k = _record.apply("reshape", _split_heads, self.k_proj(x), self.num_kv_heads)
+        v = _record.apply("reshape", _split_heads, self.v_proj(x), self.num_kv_heads)
 
         if cache is None:
             q, k = _record.apply("rope", _rope, q, k)
             # GQA: k/v stay at num_kv_heads; the flash kernel maps q heads
             # to their kv head itself
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True, training=self.training)
-            return self.o_proj(out.reshape(b, s, -1))
+            return self.o_proj(_record.apply("reshape", _merge_heads, out))
 
         # ---- serving cache mode (inference only) ----
+        b, s = x.shape[0], x.shape[1]
         max_pos = cache.block_tables.shape[1] * cache.block_size
         if positions is None:
             pos2d = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -128,7 +142,7 @@ class LlamaAttention(nn.Module):
                 # through its own position (all s tokens were just written)
                 out = flash_decode_paged_multi(qr, kp, vp, cache.block_tables, pos2d,
                                                k_scales=ks, v_scales=vs)
-        return self.o_proj(out.reshape(b, s, -1))
+        return self.o_proj(_merge_heads(out))
 
 
 class LlamaMLP(nn.Module):

@@ -30,8 +30,10 @@ def linear(x, weight, bias=None, name=None):
 
 
 def _keep(shape, p, device):
-    """A bool mask, True with probability 1 - p, from the framework generator."""
-    return torch.rand(shape, generator=_random.generator(device), device=device) < 1.0 - p
+    """A bool mask, True with probability 1 - p, from the framework generator
+    (under an export trace drawn for real: the artifact keeps the mask)."""
+    with _random.drawn_for_real():
+        return torch.rand(shape, generator=_random.generator(device), device=device) < 1.0 - p
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=None):

@@ -309,17 +309,68 @@ def _flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
     return (_flash_bwd_dq_cuda(*args),) + _flash_bwd_dkdv_cuda(*args)
 
 
+_PYTHON_KEY = torch._C.DispatchKey.Python
+
+
+def direct_launch(*ts) -> bool:
+    """True for an eager call on real CUDA tensors that nothing traces (no
+    torch.compile or export, no dispatch mode, no fake or functional
+    tensor): such a call may launch its kernel through ctypes straight away
+    and skip its registered op's dispatch, which costs tens of µs a call on
+    the card (PERF.md). A traced call must go through the op, or the trace
+    would not see the kernel."""
+    if torch.compiler.is_compiling() or torch._C._len_torch_dispatch_stack():
+        return False
+    return all(t.is_cuda and not torch._C._dispatch_keys(t).has(_PYTHON_KEY)
+               for t in ts if t is not None)
+
+
+# B1's forward as a registered op, `torch.ops.paddle_tpu_torch.flash_fwd`:
+# a graph that torch.export traces names the op, not the kernel's ctypes
+# call (which no trace sees) or the plain chain, and the op picks its
+# implementation by the device of q when the graph runs. CUDA runs the
+# kernel or raises; the CPU runs the plain version. The fake gives shapes
+# and dtypes only: every check of the kernel's (contiguity, alignment,
+# kernel_variant) runs in the real implementation, so a symbolic length
+# is not specialised at trace time.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(), device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  scale: float, dropout_p: float, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _flash_cuda(q, k, v, causal, scale, dropout_p, seed)
+
+
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_op_cpu(q, k, v, causal, scale, dropout_p, seed):
+    out, lse = _flash_plain(q, k, v, causal, scale, dropout_p, seed)
+    return out.contiguous(), lse  # the layout the kernel and the fake give
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_op_fake(q, k, v, causal, scale, dropout_p, seed):
+    b, sq, h, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((b, h, sq), dtype=torch.float32, device=q.device))
+
+
+def _flash_fwd(q, k, v, causal, scale, dropout_p, seed):
+    """B1's forward: the kernel directly for an eager call on the card,
+    else the registered op."""
+    if direct_launch(q, k, v):
+        return _flash_cuda(q, k, v, causal, scale, dropout_p, seed)
+    return _flash_fwd_op(q, k, v, causal, scale, dropout_p, seed)
+
+
 class _FlashForward(torch.autograd.Function):
     """The flash kernel as a differentiable op (the JAX package's
-    custom_vjp `_flash_core`, pallas.py:712-737): forward saves q, k, v,
-    out, lse and the seed; backward runs the two backward kernels on CUDA
-    tensors (the plain version on CPU tensors). Both out and lse are
-    differentiable: lse's cotangent folds into delta (pallas.py:619-627)."""
+    custom_vjp `_flash_core`, pallas.py:712-737): forward runs B1
+    (`_flash_fwd`) and saves q, k, v, out, lse and the seed; backward runs
+    the two backward kernels on CUDA tensors (the plain version on CPU
+    tensors). Both out and lse are differentiable: lse's cotangent folds
+    into delta (pallas.py:619-627)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
-        impl = _flash_cuda if q.is_cuda else _flash_plain
-        out, lse = impl(q, k, v, causal, scale, dropout_p, seed)
+        out, lse = _flash_fwd(q, k, v, causal, scale, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, dropout_p, seed)
         ctx.set_materialize_grads(False)  # an unused output's gradient arrives as None
@@ -353,7 +404,10 @@ def _flash(q, k, v, causal, sm_scale, dropout_p, dropout_seed):
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     seed = _as_seed(dropout_seed, float(dropout_p), q.device)
-    return _FlashForward.apply(q, k, v, bool(causal), float(scale), float(dropout_p), seed)
+    args = (q, k, v, bool(causal), float(scale), float(dropout_p), seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashForward.apply(*args)
+    return _flash_fwd(*args)
 
 
 def flash_attention_bshd(q, k, v, causal=False, sm_scale=None, dropout_p=0.0, dropout_seed=None):

@@ -251,7 +251,10 @@ class Executor:
         **kwargs,
     ):
         from ..core import state
+        from .io import _InferenceProgram
 
+        if isinstance(program, _InferenceProgram):  # load_inference_model's artifact
+            return program._run(feed or {}, return_numpy)
         _check_unported_hooks()
         program = program if program is not None else default_main_program()
         feed = feed or {}

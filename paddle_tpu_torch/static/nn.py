@@ -1,6 +1,6 @@
 """paddle.static.nn: the static layer builders (fc, conv2d, cond,
 while_loop, the sequence ops) of paddle_tpu/static/nn.py wait for their
-slice (ROADMAP Queue A item 3); every name here raises
+slice (ROADMAP Queue A item 3.4); every name here raises
 NotImplementedError when called."""
 from __future__ import annotations
 
@@ -16,12 +16,13 @@ _NAMES = (
 )
 
 
-def not_ported(name, what):
-    """A callable that raises NotImplementedError naming `what`."""
+def not_ported(name, what, item="3.4"):
+    """A callable that raises NotImplementedError naming `what` and its
+    ROADMAP Queue A item."""
 
     def f(*args, **kwargs):
         raise NotImplementedError(
-            f"paddle.static.{name}: {what} is not ported yet (ROADMAP Queue A item 3)")
+            f"paddle.static.{name}: {what} is not ported yet (ROADMAP Queue A item {item})")
 
     f.__name__ = f.__qualname__ = name.rsplit(".", 1)[-1]
     return f

@@ -47,6 +47,53 @@ def _close(got, want, what=""):
     np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=what)
 
 
+def _tie_runs(scores):
+    """[start, stop) spans of consecutive rows whose scores lie within the
+    score tolerance of their neighbour (RTOL, ATOL), each a run in which
+    the order is a near-tie; rows outside any such run are spans of one."""
+    spans, start = [], 0
+    for i in range(1, len(scores) + 1):
+        if i == len(scores) or abs(scores[i] - scores[i - 1]) > ATOL + RTOL * abs(scores[i - 1]):
+            spans.append((start, i))
+            start = i
+    return spans
+
+
+def _rows_close_up_to_ties(got, want, what=""):
+    """infer rows (x1, y1, x2, y2, score, class), `want` in the JAX
+    package's order: row count exact; within a run of rows whose JAX scores
+    lie within the score tolerance of each other (_tie_runs) the rows may
+    come in any order, each present once with its box and score within
+    tolerance and its class exact; outside such runs the order is exact."""
+    g, w = _np(got).astype(np.float32), _np(want).astype(np.float32)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    for a, b in _tie_runs(w[:, 4]):
+        free = list(range(a, b))
+        for r in range(a, b):
+            match = next((c for c in free if g[c, 5] == w[r, 5] and np.allclose(
+                g[c, :5], w[r, :5], rtol=RTOL, atol=ATOL)), None)
+            assert match is not None, (what, f"JAX row {r} {w[r]} has no match in port rows "
+                                             f"{a}..{b - 1}", g[a:b])
+            free.remove(match)
+
+
+@pytest.mark.parametrize("case", ["swap_1ulp_accepted", "swap_beyond_tol_rejected"])
+def test_rows_close_up_to_ties(case):
+    """The comparison itself: two rows whose scores are 1 f32 ulp apart may
+    come swapped; two rows whose scores differ by more than the tolerance
+    may not."""
+    s = np.float32(0.50227809)
+    s2 = np.nextafter(s, np.float32(0)) if case == "swap_1ulp_accepted" else s - np.float32(1e-4)
+    want = np.array([[0, 0, 9, 9, 0.9, 0], [1, 1, 5, 5, s, 1], [2, 2, 6, 6, s2, 1],
+                     [3, 3, 7, 7, 0.45, 2]], np.float32)
+    got = want[[0, 2, 1, 3]]
+    if case == "swap_1ulp_accepted":
+        _rows_close_up_to_ties(got, want)
+    else:
+        with pytest.raises(AssertionError):
+            _rows_close_up_to_ties(got, want)
+
+
 def _grad_close(got, want, what=""):
     g, w = _np(got), _np(want)
     assert g.shape == w.shape, (what, g.shape, w.shape)
@@ -233,7 +280,14 @@ def test_ppyoloe_decode_and_infer(yolo_runs):
     scores; infer's rows (box, score, class) in the JAX package's order,
     which holds only if the score filter and the class-aware nms kept the
     same indices; and nms on the JAX package's own decoded boxes gives its
-    indices exactly."""
+    indices exactly.
+
+    infer sorts its rows by score, so rows whose scores tie within f32
+    rounding come in either order: image 1's rows 52-54 are three class-1
+    boxes the JAX run scores 0.50227809 each, and the port scores the third
+    0.50227803 (within the 1e-5 score tolerance), which sorts it first.
+    Within such a run of near-tied scores the rows are compared as a set
+    (_rows_close_up_to_ties); everywhere else the order is exact."""
     j, t = yolo_runs["jax"], yolo_runs["port"]
     assert t["boxes"].shape == (2, 84, 4) and t["scores"].shape == (2, 84, 4)
     _close(t["boxes"], j["boxes"], "boxes")
@@ -242,8 +296,7 @@ def test_ppyoloe_decode_and_infer(yolo_runs):
     for i, (rt, rj) in enumerate(zip(t["infer"], j["infer"])):
         assert rt.dtype == rj.dtype == np.float32 and rt.shape == rj.shape
         assert 0 < rt.shape[0] <= 100
-        np.testing.assert_array_equal(rt[:, 5], rj[:, 5])
-        _close(rt[:, :5], rj[:, :5], "infer rows")
+        _rows_close_up_to_ties(rt, rj, f"infer rows of image {i}")
         conf, cls_id = j["scores"][i].max(-1), j["scores"][i].argmax(-1)
         keep = conf >= 0.4
         bb, cc, kk = j["boxes"][i][keep], conf[keep], cls_id[keep].astype(np.int64)

@@ -557,7 +557,7 @@ def test_ernie_static_training_matches_jax():
 # what waits for the next slice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["save_inference_model", "load_inference_model",
+@pytest.mark.parametrize("name", ["ExecutionStrategy", "BuildStrategy",
                                   "nn.fc", "nn.while_loop", "cond", "gradients",
                                   "CompiledProgram", "Print"])
 def test_unported_names_raise_naming_the_roadmap_item(name):
