@@ -197,6 +197,21 @@ Phases, one line each (any failure raises and exits non-zero):
   deploy_parity  the tiny f32 Llama (save_inference_model) and ERNIE
                  classifier (jit.save) exported on the card and on the CPU from
                  one set of weights: outputs within TOL["f32"], equal op lists
+  static_nn_parity every case of tests/torch_static_nn_table.py (each static.nn
+                 builder, the sequence ops, control flow, jit.cond both ways,
+                 gradients under capture, Print, the metrics, nce) captured on
+                 the CPU and on the card from one set of parameters: floats
+                 within TOL["f32"], integers and lengths exact; an EMA too
+  static_resnet50_train resnet50_train's step (B64 3x224x224, Momentum 0.1 wd
+                 1e-4, O1 bf16) as PaddleClas's static Program: ResNet-50 from
+                 static.nn builders (tests/torch_static_resnet.py) with the
+                 seed-0 resnet50's weights, CompiledProgram(BuildStrategy()),
+                 the loss and accuracy top-1/5 fetched, EMA 0.9999 updated a
+                 step: 16 steps (2 warm-up, 5 timed) against the eager
+                 model's from the same weights (losses 1e-3 and falling,
+                 buffers TOL["bf16"], no hand-written kernel); the eval clone under ema.apply() against eager
+                 eval(); ms/step, images/s, MFU, peak, idle share, EMA and
+                 eval ms
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -5371,6 +5386,291 @@ def deploy_parity(ptt, ta, state):
         launches=launches, **cmp)
 
 
+# ---------------------------------------------------------------------------
+# static.nn and the rest of paddle.static: ResNet-50 as a static.nn Program
+# ---------------------------------------------------------------------------
+
+# 2 warm-up steps, 5 timed, then more to resnet50_train's 16 (2 + 10 + 4), at
+# which its loss has fallen below the first step's: at lr 0.1 from a random
+# init the loss of the one batch climbs back over the first at steps 5-7
+STATIC_RESNET_WARMUP, STATIC_RESNET_STEPS, STATIC_RESNET_TOTAL = 2, 5, 16
+STATIC_RESNET_EMA = 0.9999
+STATIC_RESNET_EVAL_RUNS = 3
+
+
+def _timed_ms(fn):
+    """(result, ms) of one call of `fn`, to a synchronize on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _topk_acc(logits, labels, k):
+    return (logits.topk(k, dim=-1).indices == labels.reshape(-1, 1)).any(dim=-1).float().mean()
+
+
+def static_resnet50_train(ptt, ta, state):
+    """resnet50_train's step (bench.py:1982-2006: B64 3x224x224, 1000
+    classes, Momentum 0.1 wd 1e-4, O1 bf16) as PaddleClas writes it in
+    static mode: ResNet-50 from static.nn builders (tests/
+    torch_static_resnet.py) over static.data("image", [-1, 3, 224, 224]),
+    the loss and static.accuracy at k 1 and 5 fetched, Momentum.minimize,
+    run through CompiledProgram(prog, BuildStrategy()), an
+    ExponentialMovingAverage(0.9999) updated after each step. The weights
+    are the port's seed-0 vision.models.resnet50, mapped in call order with
+    a shape check. 16 static steps (2 warm-up, 5 timed), then the eager
+    model the same steps from the same weights: each loss within 1e-3, the
+    last below the first, the running
+    buffers within TOL["bf16"], accuracy the top-k of the fetched logits,
+    no hand-written kernel launched. Then prog.clone(for_test=True) at B64
+    under ema.apply(): the logits within TOL["bf16"] of the eager model in
+    eval() with the EMA weights and the program's buffers, the buffers
+    unchanged by its runs."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.vision.models import resnet50
+
+    sr = _tests_module("torch_static_resnet")
+    nn = ptt.nn
+    B, steps = RESNET_BATCH, STATIC_RESNET_TOTAL
+    timed = range(STATIC_RESNET_WARMUP, STATIC_RESNET_WARMUP + STATIC_RESNET_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.set_flags({"FLAGS_fused_optimizer": False})
+    ptt.seed(0)
+    model = resnet50(num_classes=1000)
+    rng = np.random.RandomState(0)
+    imgs = ptt.to_tensor(rng.randn(B, 3, 224, 224).astype(np.float32))
+    labels = ptt.to_tensor(rng.randint(0, 1000, (B,)).astype(np.int64))
+    params, bn_buffers = sr.eager_call_order(model, imgs[:2], nn.Conv2D, nn.BatchNorm2D,
+                                             nn.Linear)
+    t0 = time.perf_counter()
+    main, fetch, ema = sr.train_program(ptt, -1, 224, amp="O1", ema_decay=STATIC_RESNET_EMA)
+    capture_s = time.perf_counter() - t0
+    sr.check_shapes(main.all_parameters(), params)
+    with torch.no_grad():
+        for p, q in zip(main.all_parameters(), params):
+            p.copy_(q)
+    prog_buffers = sr.program_bn_buffers(main)
+    if len(prog_buffers) != len(bn_buffers):
+        raise AssertionError(f"static_resnet50_train: {len(prog_buffers)} batch norms recorded, "
+                             f"the eager model calls {len(bn_buffers)}")
+    compiled = static.CompiledProgram(main, static.BuildStrategy())
+    exe = static.Executor()
+    feed = {"image": imgs, "label": labels.reshape(-1, 1)}
+    fetch_list = [fetch[k] for k in ("loss", "logits", "acc1", "acc5")]
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    static_losses, step_ms, ema_ms, acc = [], [], [], []
+    for i in range(steps):
+        out, ms = _timed_ms(lambda: exe.run(compiled, feed=feed, fetch_list=fetch_list,
+                                            return_numpy=False))
+        _, ems = _timed_ms(ema.update)
+        loss, logits, a1, a5 = out
+        static_losses.append(loss.item())
+        acc.append([a1.item(), a5.item(), _topk_acc(logits, labels, 1).item(),
+                    _topk_acc(logits, labels, 5).item()])
+        if i in timed:
+            step_ms.append(ms)
+            ema_ms.append(ems)
+    launches = dict(ta.LAUNCHES)
+    static_peak = torch.cuda.max_memory_allocated() / 1e9
+    static_ms = float(np.mean(step_ms))
+    # the buffers after the compared steps (the profile below trains on)
+    trained_buffers = [tuple(t.clone() for t in pb) for pb in prog_buffers]
+    static_prof = profile_train(lambda: exe.run(compiled, feed=feed, fetch_list=[fetch["loss"]],
+                                                return_numpy=False), static_ms)
+    # the same steps eagerly, from the same weights (the eager model is the copy)
+    opt = ptt.optimizer.Momentum(0.1, parameters=model.parameters(), weight_decay=1e-4)
+
+    def eager_step():
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = ptt.nn.functional.cross_entropy(model(imgs), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    eager_losses, eager_step_ms = [], []
+    for i in range(steps):
+        loss, ms = _timed_ms(eager_step)
+        eager_losses.append(loss.item())
+        if i in timed:
+            eager_step_ms.append(ms)
+    eager_ms = float(np.mean(eager_step_ms))
+    launches_after = dict(ta.LAUNCHES)
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(static_losses, eager_losses)]
+    if any(launches_after.values()):
+        raise AssertionError(f"static_resnet50_train: a hand-written kernel launched: "
+                             f"{launches_after}")
+    if not (all(math.isfinite(x) for x in static_losses) and static_losses[-1] < static_losses[0]
+            and max(rel) <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"static_resnet50_train: static losses {static_losses} vs eager "
+                             f"{eager_losses}: rel err {rel} > {TRAIN_LOSS_RTOL}, or not falling")
+    if any(a[0] != a[2] or a[1] != a[3] for a in acc):
+        raise AssertionError(f"static_resnet50_train: static.accuracy is not the top-k of the "
+                             f"fetched logits: {acc}")
+    buf = {}
+    for kind, i in (("mean", 0), ("variance", 1)):
+        got = torch.cat([pb[i].reshape(-1) for pb in trained_buffers])
+        want = torch.cat([eb[i].reshape(-1) for eb in bn_buffers])
+        buf[kind] = compare(f"static_resnet50_train running {kind} against eager", got, want,
+                            TOL["bf16"])
+    # the eval clone under the EMA weights
+    test_prog = main.clone(for_test=True)
+    saved = [tuple(t.clone() for t in pb) for pb in prog_buffers]
+    with ema.apply():
+        eval_ms = []
+        for _ in range(STATIC_RESNET_EVAL_RUNS):
+            (eval_logits,), ms = _timed_ms(lambda: exe.run(test_prog, feed=feed,
+                                                           fetch_list=[fetch["logits"]],
+                                                           return_numpy=False))
+            eval_ms.append(ms)
+        moved = [k for k, (pb, sb) in enumerate(zip(prog_buffers, saved))
+                 if not (torch.equal(pb[0], sb[0]) and torch.equal(pb[1], sb[1]))]
+        with torch.no_grad():
+            for p, q in zip(params, main.all_parameters()):
+                p.copy_(q)
+            for (em, ev), (pm, pv) in zip(bn_buffers, prog_buffers):
+                em.copy_(pm)
+                ev.copy_(pv)
+        model.eval()
+        with torch.no_grad(), ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            eager_eval = model(imgs)
+        model.train()
+    if moved:
+        raise AssertionError(f"static_resnet50_train: the eval clone wrote the buffers of batch "
+                             f"norms {moved[:8]}")
+    eval_cmp = compare("static_resnet50_train eval clone against eager eval()", eval_logits,
+                       eager_eval, TOL["bf16"])
+    flops = resnet_flops_per_image(ptt, model)
+    state["static_resnet_launches"] = launches
+
+    def figures(ms, peak, prof):
+        ips = B / (ms / 1e3)
+        return dict(ms_per_step=ms, images_per_sec=ips, mfu=ips * flops / PEAK_FLOPS[torch.bfloat16],
+                    peak_mem_gb=peak, device_busy_ms=prof["device_busy_ms"] if prof else None,
+                    device_idle_share=prof["device_idle_share"] if prof else None)
+
+    log("static_resnet50_train", batch=B, image=[3, 224, 224], classes=1000, layers=50,
+        params_m=sum(p.numel() for p in main.all_parameters()) / 1e6, capture_s=capture_s,
+        n_ops_recorded=len(main.ops), n_batch_norms=len(prog_buffers), steps=steps,
+        losses_static=static_losses, losses_eager=eager_losses, loss_rel_err=rel,
+        loss_rel_bound=TRAIN_LOSS_RTOL, accuracy_top1_top5=[a[:2] for a in acc],
+        ema_decay=STATIC_RESNET_EMA, ema_update_ms=float(np.mean(ema_ms)),
+        eval_ms=eval_ms, flops_per_image=flops, launches=launches,
+        static=figures(static_ms, static_peak, static_prof),
+        eager=figures(eager_ms, torch.cuda.max_memory_allocated() / 1e9, None),
+        buffers=buf, eval_clone=eval_cmp)
+    log("static_resnet50_train profile", static=static_prof)
+    del main, compiled, test_prog, exe, model, opt, ema
+    torch.cuda.empty_cache()
+
+
+def _fetch_outs(out):
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    return [o for o in outs if o is not None]
+
+
+def static_nn_run(ptt, static, dev, build, feeds, params=None):
+    """One static.nn case captured and run on `dev` (seed 0 before the
+    capture: nce's noise seed); its parameters from `params` (CPU tensors,
+    in all_parameters order) when given. Returns (outputs on the CPU, the
+    parameters on the CPU, the program)."""
+    ptt.set_device(dev)
+    ptt.seed(0)
+    main = static.Program()
+    with static.program_guard(main, static.Program()):
+        xs = [static.data(n, list(a.shape), str(a.dtype)) for n, a in feeds]
+        outs = _fetch_outs(build(ptt, static, *xs))
+    mine = main.all_parameters()
+    if params is None:
+        params = [p.detach().cpu().clone() for p in mine]
+    else:
+        _tests_module("torch_static_resnet").check_shapes(mine, params)
+        with torch.no_grad():
+            for p, q in zip(mine, params):
+                p.copy_(q)
+    feed = {n: torch.from_numpy(np.array(a)).to(dev) for n, a in feeds}
+    got = static.Executor().run(main, feed=feed, fetch_list=outs, return_numpy=False)
+    return [g.detach().cpu() for g in got], params, main
+
+
+def _hold_f32(name, got, want):
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: card and CPU differ: {got} != {want}")
+        return 0.0
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} on the card, "
+                             f"{want.dtype}{tuple(want.shape)} on the CPU")
+    d = want.shape[-1] if want.dim() else 1
+    return compare(name, got.reshape(-1, d), want.reshape(-1, d), TOL["f32"])["worst_elem_ratio"]
+
+
+def static_nn_parity(ptt, ta):
+    """Every case of tests/torch_static_nn_table.py (each static.nn builder,
+    the sequence ops, control flow, jit.cond on both branches, gradients
+    under capture, Print, accuracy, auc, ctr_metric_bundle, nce) captured
+    and run on the CPU and on the card from the CPU's parameters: floats
+    within TOL["f32"], integers exact; the eager sequence lengths exact;
+    an EMA over one program's parameters, card against CPU."""
+    from paddle_tpu_torch import static
+
+    table = _tests_module("torch_static_nn_table")
+    cases = table.BUILDERS + table.SEQUENCE + table.EXTRAS
+    worst, n_out = {}, 0
+    try:
+        for cid, build, feeds in cases:
+            want, params, _ = static_nn_run(ptt, static, "cpu", build, feeds)
+            got, _, _ = static_nn_run(ptt, static, "cuda", build, feeds, params)
+            if len(got) != len(want):
+                raise AssertionError(f"static_nn_parity {cid}: {len(got)} outputs on the card, "
+                                     f"{len(want)} on the CPU")
+            worst[cid] = max(_hold_f32(f"static_nn_parity {cid}[{i}]", g, w)
+                             for i, (g, w) in enumerate(zip(got, want)))
+            n_out += len(got)
+        # eager: the lengths sequence_pad gives and sequence_unpad reads
+        x = table.randn(3, 6, 2)
+        lens = np.array([2, 4, 1], np.int64)
+        eager = {}
+        for dev in ("cpu", "cuda"):
+            ptt.set_device(dev)
+            _, ln = static.nn.sequence_pad(ptt.to_tensor(x), 0.0, maxlen=8)
+            un = static.nn.sequence_unpad(ptt.to_tensor(x), ptt.to_tensor(lens))
+            eager[dev] = (ln.cpu(), un.cpu())
+        if not (torch.equal(eager["cpu"][0], eager["cuda"][0])
+                and eager["cuda"][0].tolist() == [6, 6, 6]):
+            raise AssertionError(f"static_nn_parity: sequence_pad lengths {eager}")
+        _hold_f32("static_nn_parity sequence_unpad", eager["cuda"][1], eager["cpu"][1])
+        # EMA: three updates over the fc case's parameters, applied
+        ema_vals = {}
+        for dev in ("cpu", "cuda"):
+            ptt.set_device(dev)
+            ptt.seed(0)
+            main = static.Program()
+            with static.program_guard(main, static.Program()):
+                static.nn.fc(static.data("x", [2, 4]), 3)
+                ema = static.ExponentialMovingAverage(0.9)
+            ps = main.all_parameters()
+            for k in range(3):
+                with torch.no_grad():
+                    for j, p in enumerate(ps):
+                        p.copy_(torch.from_numpy(table.randn(*p.shape, seed=10 * k + j)))
+                ema.update()
+            with ema.apply():
+                ema_vals[dev] = [p.detach().cpu().clone() for p in ps]
+        for j, (g, w) in enumerate(zip(ema_vals["cuda"], ema_vals["cpu"])):
+            worst[f"ema[{j}]"] = _hold_f32(f"static_nn_parity ema[{j}]", g, w)
+    finally:
+        ptt.set_device("cuda")
+    log("static_nn_parity", cases=len(cases), outputs=n_out, tol=TOL["f32"],
+        worst_elem_ratio=max(worst.values()),
+        worst_case=max(worst, key=worst.get), by_case={k: round(v, 4) for k, v in worst.items()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
@@ -5380,6 +5680,7 @@ def main(argv=None) -> int:
                                         "rms_norm_entry,ernie_parity,ernie_seq128,ernie_seq4096,"
                                         "static_llama_capture,static_parity,static_ernie_train,"
                                         "deploy_ernie,deploy_llama_static,deploy_parity,"
+                                        "static_nn_parity,static_resnet50_train,"
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
                                         "ernie_finetune,nn_surface,transformer_parity,"
@@ -5588,6 +5889,10 @@ def main(argv=None) -> int:
         deploy_llama_static(ptt, ta, state)
     if "deploy_parity" in phases:
         deploy_parity(ptt, ta, state)
+    if "static_nn_parity" in phases:
+        static_nn_parity(ptt, ta)
+    if "static_resnet50_train" in phases:  # resnet50_train as PaddleClas's static Program
+        static_resnet50_train(ptt, ta, state)
     if "resnet_parity" in phases:
         resnet_parity(ptt)
     if "resnet50_train" in phases:  # bench.py:1974-2006
@@ -5644,7 +5949,8 @@ def main(argv=None) -> int:
                "static_ernie_train": state.get("static_ernie_launches", {}),
                "deploy_ernie": state.get("deploy_ernie_launches", {}),
                "deploy_llama_static": state.get("deploy_llama_launches", {}),
-               "deploy_parity": state.get("deploy_parity_launches", {})}
+               "deploy_parity": state.get("deploy_parity_launches", {}),
+               "static_resnet50_train": state.get("static_resnet_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():

@@ -200,6 +200,23 @@ def apply(name, fn, *args, **kwargs):
     return record_call(name, fn, args, kwargs)
 
 
+def apply_nograd(name, fn, *args, **kwargs):
+    """`apply` for an op that is never differentiable (a comparison, an
+    argmax): `fn` runs without autograd, now and at every replay."""
+    return apply(name, _NoGrad(fn), *args, **kwargs)
+
+
+class _NoGrad:
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args, **kwargs):
+        with torch.no_grad():
+            return self.fn(*args, **kwargs)
+
+
 def record_module(namespace):
     """Wrap every public function a module defines (its globals) as a
     recorded op under its own `__name__` (aliases of one function share

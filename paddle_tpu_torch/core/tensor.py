@@ -28,6 +28,7 @@ import torch
 
 from ..framework import dtype as _dtype
 from ..framework.io import numpy_to_tensor, tensor_to_numpy
+from . import record as _record
 
 Tensor = torch.Tensor
 
@@ -36,7 +37,6 @@ Tensor = torch.Tensor
 LATER_SLICE = {
     "process_mesh": "distributed", "placements": "distributed", "is_dist": "distributed",
     "_dist_attr": "distributed",
-    "apply_nograd": "static (program capture)",
 }
 
 
@@ -166,7 +166,8 @@ def install() -> None:
         setattr(T, fn.__name__, fn)
     T.cast = astype
     T.clear_gradient = clear_grad
-    for name in ("is_dist", "apply_nograd"):
-        setattr(T, name, _raising_method(name))
+    T.is_dist = _raising_method("is_dist")
+    # the JAX package's method form: the tensor binds as the op's name
+    T.apply_nograd = _record.apply_nograd
     for name in ("process_mesh", "placements", "_dist_attr"):
         setattr(T, name, _raising_property(name))

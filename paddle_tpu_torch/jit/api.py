@@ -121,3 +121,23 @@ def ignore_module(modules):
     """paddle.jit.ignore_module: modules whose calls to_static leaves
     alone; accepted, as in the JAX package."""
     return None
+
+
+def _cond_branches(true_fn, false_fn):
+    def run(p, *vals):
+        with torch.no_grad():
+            take = bool(p.detach().cpu()) if isinstance(p, torch.Tensor) else bool(p)
+        return true_fn(*vals) if take else false_fn(*vals)
+
+    return run
+
+
+def cond(pred, true_fn, false_fn, *operands):
+    """true_fn(*operands) where `pred` holds, else false_fn(*operands) (also
+    paddle.static.cond): one op "cond" under capture, whose replay reads
+    `pred` and runs the branch it picks at every run; the branches'
+    own ops are not recorded. `pred` is read on the host."""
+    from ..core import record
+
+    pred_t = pred if isinstance(pred, torch.Tensor) else torch.as_tensor(bool(pred))
+    return record.apply("cond", _cond_branches(true_fn, false_fn), pred_t, *operands)

@@ -6,6 +6,7 @@ import torch
 from torch.nn import functional as TF
 
 from ...amp import amp_cast_inputs
+from ...core import state as _state
 from ...framework import dtype as _dtype
 
 
@@ -51,6 +52,15 @@ def _bn_stats(x, axes):
     return mean.to(x.dtype), var.to(x.dtype)
 
 
+@torch.no_grad()
+def _update_running(running_mean, running_var, mean, var, momentum):
+    # (1 - momentum) multiplies in the statistics' type, as a weak Python
+    # float does in the JAX package
+    keep = _dtype.round_to(1 - momentum, mean.dtype)
+    running_mean.copy_(running_mean * momentum + mean * keep)
+    running_var.copy_(running_var * momentum + var * keep)
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=False,
                momentum=0.9, epsilon=1e-5, data_format="NCHW", use_global_stats=None, name=None):
     """Batch norm over every axis but the channel's (axis 1 for NC...
@@ -66,12 +76,11 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
     ch = 1 if data_format.startswith("NC") and x.dim() > 1 else x.dim() - 1
     if training and not use_global_stats:
         mean, var = _bn_stats(x, [i for i in range(x.dim()) if i != ch])
-        with torch.no_grad():
-            # (1 - momentum) multiplies in the statistics' type, as a weak
-            # Python float does in the JAX package
-            keep = _dtype.round_to(1 - momentum, mean.dtype)
-            running_mean.copy_(running_mean * momentum + mean * keep)
-            running_var.copy_(running_var * momentum + var * keep)
+        # a capture's dry run (program_guard) leaves the buffers alone, as
+        # building a paddle Program runs nothing; the recorded op's replay
+        # writes them
+        if _state.get_program_capture() is None:
+            _update_running(running_mean, running_var, mean, var, momentum)
     else:
         mean, var = running_mean, running_var
     x, mean, var, weight, bias = amp_cast_inputs("batch_norm", [x, mean, var, weight, bias])

@@ -9,6 +9,7 @@ import math
 import torch
 from torch import nn
 
+from ...core import record as _record
 from ...framework import device as _device
 from .. import functional as F
 from ..functional.norm import batch_norm, layer_norm, rms_norm
@@ -197,8 +198,12 @@ class SpectralNorm(Layer):
         self.weight_v.requires_grad_(False)
 
     def forward(self, weight):
+        # one op "spectral_norm" of a static capture, as in the JAX package
+        return _record.apply("spectral_norm", self._normalized, weight, self.weight_u,
+                             self.weight_v)
+
+    def _normalized(self, weight, u, v):
         wm = weight.movedim(self._dim, 0).reshape(weight.shape[self._dim], -1)
-        u, v = self.weight_u, self.weight_v
         for _ in range(self._power_iters):
             v = wm.t() @ u
             v = v / (torch.linalg.vector_norm(v) + self._epsilon)

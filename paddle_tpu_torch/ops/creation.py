@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import record as _record
 from ..framework import device as _device
 from ..framework import dtype as _dtype
 from ..framework import random as _random
@@ -32,16 +33,18 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> torch.Tensor:
     copy of `data` (a tensor, numpy array, list or scalar). Without a
     dtype, float64 data takes the default float type, as in paddle;
     other types keep theirs. stop_gradient=False makes it a leaf that
-    requires grad."""
+    requires grad. Under a static capture it is a constant of the
+    program, made unrecorded, as the JAX package makes it outside `apply`."""
     dev = _device.resolve(place)
-    if isinstance(data, torch.Tensor):
-        t = data.detach().to(dev, copy=True)
-    else:
-        t = numpy_to_tensor(np.asarray(data)).to(dev)
-        if dtype is None and t.dtype == torch.float64:
-            t = t.to(_dtype.get_default_dtype())
-    if dtype is not None:
-        t = t.to(_dtype.convert_dtype(dtype))
+    with _record.suspended():
+        if isinstance(data, torch.Tensor):
+            t = data.detach().to(dev, copy=True)
+        else:
+            t = numpy_to_tensor(np.asarray(data)).to(dev)
+            if dtype is None and t.dtype == torch.float64:
+                t = t.to(_dtype.get_default_dtype())
+        if dtype is not None:
+            t = t.to(_dtype.convert_dtype(dtype))
     return t.requires_grad_(not stop_gradient)
 
 

@@ -64,6 +64,17 @@ def _sr_bits_flat(x32: torch.Tensor, idx: torch.Tensor, seed: int) -> torch.Tens
     return kept.view(torch.float32).view(x32.shape)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an f32 tensor. torch's CPU
+    `sqrt` is not correctly rounded on every host (it can be one ulp off
+    numpy's, XLA's eager root and the kernel's `__fsqrt_rn`), so a CPU
+    tensor takes its root in f64 and rounds once: an f64 root rounded to
+    f32 is the correctly rounded f32 root. CUDA's `sqrt` already is."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _update_math(p, m, v, g, lr, clip, c1, c2, *, beta1, beta2, eps, wd, decoupled):
     """The one shared AdamW/Adam elementwise update, f32 in and out, in the
     JAX package's order (paddle_tpu/ops/fused_optimizer.py:98-110)."""
@@ -72,7 +83,7 @@ def _update_math(p, m, v, g, lr, clip, c1, c2, *, beta1, beta2, eps, wd, decoupl
         g = g + wd * p
     m_new = beta1 * m + (1.0 - beta1) * g
     v_new = beta2 * v + (1.0 - beta2) * g * g
-    upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+    upd = (m_new / c1) / (sqrt_rn(v_new / c2) + eps)
     if wd and decoupled:  # AdamW: decoupled decay joins the update
         upd = upd + wd * p
     return p - lr * upd, m_new, v_new

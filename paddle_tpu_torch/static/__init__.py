@@ -1,14 +1,12 @@
 """paddle.static (counterpart of paddle_tpu/static/__init__.py): Program
 capture under program_guard, the Executor, append_backward and static
 minimize, InputSpec, the analyses (analysis/), the pass pipeline
-(passes/), save/load_inference_model and save/load (io.py), and the
+(passes/), save/load_inference_model and save/load (io.py), the layer
+builders (nn.py), and the strategies, metrics, EMA, gradients and
 serialization names of extras.py. See program.py and executor.py for
 the design.
-
-Names whose modules wait for a later slice (ROADMAP Queue A item 3)
-raise NotImplementedError when called: static.nn's builders
-(static/nn.py) and the rest of static/extras.py.
 """
+from ..jit.api import cond  # noqa: F401
 from ..ops.creation import create_parameter  # noqa: F401
 from . import analysis, nn, passes  # noqa: F401
 from .analysis import (  # noqa: F401
@@ -20,18 +18,39 @@ from .analysis import (  # noqa: F401
 )
 from .executor import Executor, append_backward, global_scope, scope_guard  # noqa: F401
 from .extras import (  # noqa: F401
+    BuildStrategy,
+    CompiledProgram,
+    ExecutionStrategy,
+    ExponentialMovingAverage,
+    IpuCompiledProgram,
+    IpuStrategy,
+    Print,
+    Variable,
+    WeightNormParamAttr,
+    accuracy,
+    auc,
+    cpu_places,
+    create_global_var,
+    ctr_metric_bundle,
+    cuda_places,
     deserialize_persistables,
     deserialize_program,
+    device_guard,
+    gradients,
+    ipu_shard_guard,
     load_from_file,
     load_program_state,
+    name_scope,
     normalize_program,
+    py_func,
     save_to_file,
     serialize_persistables,
     serialize_program,
+    set_ipu_shard,
     set_program_state,
+    xpu_places,
 )
 from .io import load, load_inference_model, save, save_inference_model  # noqa: F401
-from .nn import not_ported as _not_ported
 from .program import (  # noqa: F401
     Program,
     data,
@@ -39,18 +58,6 @@ from .program import (  # noqa: F401
     default_startup_program,
     program_guard,
 )
-
-_EXTRAS = (
-    "BuildStrategy", "CompiledProgram", "ExecutionStrategy", "ExponentialMovingAverage",
-    "IpuCompiledProgram", "IpuStrategy", "Print", "Variable", "WeightNormParamAttr", "accuracy",
-    "auc", "cpu_places", "create_global_var", "ctr_metric_bundle", "cuda_places",
-    "device_guard", "gradients", "ipu_shard_guard", "name_scope", "py_func", "set_ipu_shard",
-    "xpu_places",
-)
-for _n in _EXTRAS:
-    globals()[_n] = _not_ported(_n, "static/extras.py", "3.5")
-cond = _not_ported("cond", "static/nn.py's control flow")
-
 
 class InputSpec:
     """paddle.static.InputSpec (shape/dtype/name triple)."""

@@ -149,7 +149,11 @@ class _Compiled:
         self.grad_requests = list(work.grad_requests)
         self.opt_updates = list(work.opt_updates)
         self.pos_of_param = {v: i for i, v in enumerate(work.param_vars)}
-        self.keep = set(fetch_vars) | {loss for loss, _, _ in self.grad_requests}
+        # feeds and activations a grad request differentiates (static.gradients)
+        self.grad_leaves = {v for _, pvars, _ in self.grad_requests for v in pvars
+                            if v not in self.pos_of_param}
+        self.keep = (set(fetch_vars) | {loss for loss, _, _ in self.grad_requests}
+                     | self.grad_leaves)
         self.last_uses = work.last_uses()
 
     def __call__(self, feed_arrays, param_arrays, accum_arrays, lr_values):
@@ -161,9 +165,11 @@ class _Compiled:
         # one grad pass PER request (losses must not contaminate each
         # other), differentiating only wrt that request's parameters
         for loss_var, pvars, gvars in self.grad_requests:
-            wrt = [param_arrays[pos_of_param[pv]] for pv in pvars]
             with torch.enable_grad():
-                env = work.replay_env(feeds, param_arrays, self.keep, self.last_uses)
+                env = work.replay_env(feeds, param_arrays, self.keep, self.last_uses,
+                                      self.grad_leaves)
+                wrt = [param_arrays[pos_of_param[pv]] if pv in pos_of_param else env[pv]
+                       for pv in pvars]
                 loss = env[loss_var].sum()
                 diff = [i for i, p in enumerate(wrt) if p.requires_grad]
                 grads = torch.autograd.grad(loss, [wrt[i] for i in diff], allow_unused=True)
@@ -253,8 +259,12 @@ class Executor:
         from ..core import state
         from .io import _InferenceProgram
 
+        from .extras import CompiledProgram
+
         if isinstance(program, _InferenceProgram):  # load_inference_model's artifact
             return program._run(feed or {}, return_numpy)
+        if isinstance(program, CompiledProgram):
+            program = program._program
         _check_unported_hooks()
         program = program if program is not None else default_main_program()
         feed = feed or {}

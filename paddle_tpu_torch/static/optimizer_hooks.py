@@ -21,6 +21,7 @@ from collections import defaultdict
 import torch
 
 from ..framework import dtype as _dtype
+from ..ops.fused_optimizer import sqrt_rn
 from .executor import _FusedAdamWUpdate, _OptUpdate, append_backward
 from .program import default_main_program
 
@@ -53,7 +54,7 @@ def _make_adam_update(b1, b2, eps, with_decoupled_wd=0.0):
         v2 = b2 * v + (1 - b2) * g32 * g32
         mhat = m2 / (1 - b1 ** t)
         vhat = v2 / (1 - b2 ** t)
-        step = _lr(lr, p) * (mhat / (torch.sqrt(vhat) + eps)).to(p.dtype)
+        step = _lr(lr, p) * (mhat / (sqrt_rn(vhat) + eps)).to(p.dtype)
         newp = p - step
         if with_decoupled_wd:
             newp = newp - _lr(lr, p) * with_decoupled_wd * p

@@ -12,6 +12,8 @@ alone — canonicalization must never guess.
 """
 from __future__ import annotations
 
+import torch
+
 from ..analysis.graph import EFFECTFUL_OPS
 from .pass_base import (
     PassStats,
@@ -96,6 +98,14 @@ class ConstantFoldScalarsPass(ProgramPass):
         return PassStats(matches=folded, rewritten_ops=folded)
 
 
+def _moves_device(op) -> bool:
+    """A recorded `Tensor.to(device)` is a "cast" that may keep the dtype
+    and still move the tensor: never redundant."""
+    return any(r[0] == "lit" and (isinstance(r[1], torch.device) or (
+        isinstance(r[1], str) and r[1].split(":")[0] in ("cpu", "cuda")))
+        for r in op.in_refs)
+
+
 @register_pass
 class RedundantCastReshapeElimPass(ProgramPass):
     """Remove casts whose output dtype equals the input's and reshapes
@@ -112,7 +122,7 @@ class RedundantCastReshapeElimPass(ProgramPass):
             graph = ctx.graph()
             did = 0
             for i, op in enumerate(program.ops):
-                if op.name not in ("cast", "reshape"):
+                if op.name not in ("cast", "reshape") or _moves_device(op):
                     continue
                 var_ins = [r[1] for r in op.in_refs if r[0] == "var"]
                 if len(var_ins) != 1 or len(op.out_vars) != 1:

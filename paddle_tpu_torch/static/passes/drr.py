@@ -255,6 +255,28 @@ def external_refs(program, op_indices) -> Tuple[list, list]:
     return refs, plans
 
 
+class ClusterFn:
+    """A fused op's fn: mini-replays `instrs` (the matched ops) over an
+    interior env, `plans[i]` saying where each argument of instr i comes
+    from (an earlier instr's output or the fused op's i-th input)."""
+
+    __slots__ = ("instrs", "plans", "roots")
+
+    def __init__(self, instrs, plans, roots):
+        self.instrs, self.plans, self.roots = list(instrs), plans, list(roots)
+
+    def __call__(self, *vals):
+        env = {}
+        for instr, plan in zip(self.instrs, self.plans):
+            args = [env[key] if tag == "env" else vals[key] for tag, key in plan]
+            out = instr.fn(*args, **instr.kwargs)
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for vid, pos in zip(instr.out_vars, instr.out_positions):
+                env[vid] = outs[pos]
+        res = tuple(env[v] for v in self.roots)
+        return res if len(res) > 1 else res[0]
+
+
 def build_cluster_instr(program, match: Match, name: str) -> OpInstr:
     """The default DRR result: ONE op whose fn mini-replays the matched
     instrs' recorded fns over an interior env — the replacement makes the
@@ -263,19 +285,7 @@ def build_cluster_instr(program, match: Match, name: str) -> OpInstr:
     instrs = [program.ops[i] for i in match.op_indices]
     refs, plans = external_refs(program, match.op_indices)
     roots = match.root_vids()
-
-    def fused_fn(*vals):
-        env = {}
-        for instr, plan in zip(instrs, plans):
-            args = [env[key] if tag == "env" else vals[key] for tag, key in plan]
-            out = instr.fn(*args, **instr.kwargs)
-            outs = out if isinstance(out, (tuple, list)) else (out,)
-            for vid, pos in zip(instr.out_vars, instr.out_positions):
-                env[vid] = outs[pos]
-        res = tuple(env[v] for v in roots)
-        return res if len(res) > 1 else res[0]
-
-    return OpInstr(name, fused_fn, refs, {}, list(roots),
+    return OpInstr(name, ClusterFn(instrs, plans, roots), refs, {}, list(roots),
                    list(range(len(roots))), len(roots))
 
 

@@ -150,14 +150,20 @@ class Program:
                     last[r[1]] = i
         return last
 
-    def replay_env(self, feed_bindings, param_arrays, keep=None, last_uses=None):
+    def replay_env(self, feed_bindings, param_arrays, keep=None, last_uses=None,
+                   grad_leaves=()):
         """Execute the instruction list over an env seeded with feed/param
         values; returns the env (var id -> value). With `keep` (a set of var
         ids), a value no later op reads and `keep` does not hold is dropped
-        after its last use."""
+        after its last use. A float feed or op output in `grad_leaves` that
+        autograd does not track yet becomes a leaf that requires grad, so
+        a gradient can be taken with respect to it."""
         env = dict(feed_bindings)
         for vid, arr in zip(self.param_vars, param_arrays):
             env[vid] = arr
+        for vid in grad_leaves:
+            if vid in env:
+                env[vid] = _grad_leaf(env[vid])
         if keep is not None and last_uses is None:
             last_uses = self.last_uses()
         for i, instr in enumerate(self.ops):
@@ -174,7 +180,7 @@ class Program:
                     f"arity between record and replay"
                 )
             for vid, pos in zip(instr.out_vars, instr.out_positions):
-                env[vid] = outs[pos]
+                env[vid] = _grad_leaf(outs[pos]) if vid in grad_leaves else outs[pos]
             if keep is not None:
                 for r in instr.in_refs:
                     if r[0] == "var" and last_uses.get(r[1]) == i and r[1] not in keep:
@@ -245,8 +251,14 @@ class Program:
         return self.to_text()
 
     def clone(self, for_test=False):
+        """A copy sharing the recorded ops and the tensors. With
+        `for_test`, paddle's test program: no backward or updates, and
+        every op with a training switch (batch norm, the dropouts, also
+        inside a fused op) replays in inference mode, so batch norm
+        normalizes with its buffers and writes nothing; this program's
+        ops are left as they are."""
         p = Program()
-        p.ops = list(self.ops)
+        p.ops = [_inference_op(op) for op in self.ops] if for_test else list(self.ops)
         p.feed_vars = dict(self.feed_vars)
         p.feed_shapes = dict(self.feed_shapes)
         p._id2var = dict(self._id2var)
@@ -257,6 +269,64 @@ class Program:
         p.opt_updates = [] if for_test else list(self.opt_updates)
         p._next_var = self._next_var
         return p
+
+
+def _grad_leaf(v):
+    if v.requires_grad or not v.is_floating_point() or not torch.is_grad_enabled():
+        return v
+    return v.detach().requires_grad_()
+
+
+# ---- a test clone's ops (Program.clone(for_test=True)) ----
+
+_TRAINING_ARGS = ("training", "train")  # paddle's functionals, torch's dropouts
+
+
+class _Inference:
+    """A recorded op's target called with its training switch off."""
+
+    __slots__ = ("target", "sig", "arg")
+
+    def __init__(self, target, sig, arg):
+        self.target, self.sig, self.arg = target, sig, arg
+
+    def __call__(self, *args, **kwargs):
+        bound = self.sig.bind(*args, **kwargs)
+        bound.arguments[self.arg] = False
+        return self.target(*bound.args, **bound.kwargs)
+
+
+def _inference_fn(fn):
+    """`fn` (a recorded op's fn) replaying in inference mode, or None when
+    nothing in it has a training switch."""
+    import inspect
+
+    from .passes.drr import ClusterFn
+
+    if isinstance(fn, ClusterFn):
+        instrs = [_inference_op(i) for i in fn.instrs]
+        if all(a is b for a, b in zip(instrs, fn.instrs)):
+            return None
+        return ClusterFn(instrs, fn.plans, fn.roots)
+    if not isinstance(fn, _record.Replay):
+        return None
+    target = inspect.unwrap(fn.target)
+    try:
+        sig = inspect.signature(target)
+    except (TypeError, ValueError):  # a builtin without a signature
+        return None
+    arg = next((a for a in _TRAINING_ARGS if a in sig.parameters), None)
+    if arg is None:
+        return None
+    return _record.Replay(_Inference(target, sig, arg), fn.spec, fn.amp, fn.rng)
+
+
+def _inference_op(op: OpInstr) -> OpInstr:
+    fn = _inference_fn(op.fn)
+    if fn is None:
+        return op
+    return OpInstr(op.name, fn, list(op.in_refs), dict(op.kwargs), list(op.out_vars),
+                   op.out_positions, op.n_raw_outs)
 
 
 # ---- global default programs (paddle.static.default_main_program) ----

@@ -90,8 +90,7 @@ def test_tensor_attributes_are_ported_or_on_the_raise_list():
 
 def test_raise_list_holds_nothing_else():
     assert LATER_SLICE == {"process_mesh": "distributed", "placements": "distributed",
-                           "is_dist": "distributed", "_dist_attr": "distributed",
-                           "apply_nograd": "static (program capture)"}
+                           "is_dist": "distributed", "_dist_attr": "distributed"}
     assert {"stft", "istft"} <= set(_patch.CONFLICTS)  # torch's stay; paddle's: signal slice
 
 

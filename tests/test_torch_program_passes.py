@@ -201,6 +201,25 @@ def test_fusion_blocked_when_interior_var_is_fetched():
     assert counts["paddle_tpu_torch"] == counts["paddle_tpu"] == (0, 2)
 
 
+def test_cast_elim_keeps_a_device_move():
+    """A recorded Tensor.to(device) is a "cast" of the same dtype and
+    shape: removing it would hand its consumers the tensor on the other
+    device, so the cast elimination keeps it; a same-dtype cast without
+    a device goes."""
+    main = tstatic.Program()
+    with tstatic.program_guard(main, tstatic.Program()):
+        x = tstatic.data("x", [3])
+        moved = x.to("cpu", copy=True) + 1.0
+        same = x.to(torch.float32, copy=True) * 2.0
+    assert [op.name for op in main.ops] == ["cast", "add", "cast", "multiply"]
+    fv = [main._id2var[id(moved)], main._id2var[id(same)]]
+    work, stats = _run_pass(passes, main, "redundant_cast_reshape_elim", fv)
+    assert stats.matches == 1 and [op.name for op in work.ops] == ["cast", "add", "multiply"]
+    got = tstatic.Executor().run(main, feed={"x": np.arange(3, dtype="float32")},
+                                 fetch_list=[moved, same])
+    assert [g.tolist() for g in got] == [[1.0, 2.0, 3.0], [0.0, 2.0, 4.0]]
+
+
 # ---------------------------------------------------------------------------
 # mutant passes: caught by the post-pass verify, with the pass named
 # ---------------------------------------------------------------------------

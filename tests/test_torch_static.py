@@ -554,18 +554,25 @@ def test_ernie_static_training_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# what waits for the next slice
+# what is refused, and what waits for a later slice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["ExecutionStrategy", "BuildStrategy",
-                                  "nn.fc", "nn.while_loop", "cond", "gradients",
-                                  "CompiledProgram", "Print"])
-def test_unported_names_raise_naming_the_roadmap_item(name):
-    obj = tstatic
-    for part in name.split("."):
-        obj = getattr(obj, part)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        obj()
+@pytest.mark.parametrize("name", ["IpuStrategy", "IpuCompiledProgram", "ipu_shard_guard",
+                                  "set_ipu_shard", "xpu_places"])
+def test_names_the_jax_package_refuses_raise_as_there(name):
+    """static.nn and the rest of extras.py are ported; the names the JAX
+    package itself refuses (the IPU and XPU ones) raise RuntimeError in
+    both packages."""
+    for st in (jstatic, tstatic):
+        fn = getattr(st, name)
+        with pytest.raises(RuntimeError, match="IPU|XPU"):
+            if name == "ipu_shard_guard":
+                with fn():
+                    pass
+            elif name == "set_ipu_shard":
+                fn(lambda: None)
+            else:
+                fn()
 
 
 def test_unported_executor_hooks_raise(monkeypatch):
