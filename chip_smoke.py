@@ -212,6 +212,31 @@ Phases, one line each (any failure raises and exits non-zero):
                  buffers TOL["bf16"], no hand-written kernel); the eval clone under ema.apply() against eager
                  eval(); ms/step, images/s, MFU, peak, idle share, EMA and
                  eval ms
+  guarded_train_bf16 train_bf16's configuration (4 layers at the Llama-3-8B
+                 width, S4096, O1 bf16, fused AdamW, bf16 moment2) under
+                 FLAGS_check_nan_inf and TrainingGuardian(policy="rollback"),
+                 LKG every 2 steps in a ring of 2: 10 steps inside a Profiler
+                 record window (export_chrome_tracing) and benchmark(), a
+                 FaultPlan NaN in a grad after the first snapshot: the step
+                 rolls back, the state equals the snapshot bit for bit (the
+                 ported digest, card against CPU too), exact launches (no B5
+                 for the rolled-back step), the trace holds B1-B3 and B5,
+                 perf_report validates, the counted FLOPs within 10% of the
+                 analytic count; plain against guarded step ms in turns, the
+                 check's ms beside its byte bound, snapshot, rollback and
+                 census ms, the profiler's overhead, MFU, peak
+  cold_start     three processes on one compile-cache directory, each from an
+                 empty kernel build directory, building serve_bf16's engine
+                 (32 layers) and serving one prompt for 4 tokens: cold (nvcc,
+                 persist), warm (restore, no nvcc), then one payload byte
+                 flipped (a counted CRC rejection, that library rebuilt);
+                 equal ids, restored libraries byte-equal to the built ones,
+                 each run's `compile_cache report` components summing to its
+                 engine-load -> first-token wall within 5%
+  (static_ernie_train also runs its 5 steps again with FLAGS_check_nan_inf
+  and a compile-cache directory set: losses bit-equal, one ledger miss then
+  hits, and a NaN loss scale fed makes the Executor raise GuardianAnomaly
+  with a flight-recorder dump)
 Kernel checks (phase kernels): flash forward (timed at the Llama shapes and
 ERNIE's two), paged attention (decode, extend, int8 and f32 pages, frontiers
 on the planned split boundaries, a long single row; every case launched twice
@@ -4811,9 +4836,11 @@ def static_llama_capture(ptt, ta, model, state):
 STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ, STATIC_ERNIE_STEPS = 64, 128, 5
 
 
-def static_ernie_program(ptt, model):
+def static_ernie_program(ptt, model, loss_scale_feed=False):
     """bench.py's ERNIE step written as a static Program: feeds, the MLM
-    loss under auto_cast(O1, bf16), AdamW.minimize with the fused bucket."""
+    loss under auto_cast(O1, bf16), AdamW.minimize with the fused bucket.
+    `loss_scale_feed` multiplies the loss by a fed [1] f32 scale (1.0 keeps
+    every bit; NaN poisons the update, as a bad batch would)."""
     from paddle_tpu_torch import static
 
     ptt.set_flags({"FLAGS_fused_optimizer": True})
@@ -4823,6 +4850,8 @@ def static_ernie_program(ptt, model):
         labels = static.data("labels", [STATIC_ERNIE_BATCH, STATIC_ERNIE_SEQ], "int64")
         with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
             loss, _ = model(ids, labels=labels)
+        if loss_scale_feed:
+            loss = loss * static.data("loss_scale", [1], "float32")
         ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
                             moment2_dtype="bfloat16").minimize(loss)
     return main, loss
@@ -4869,7 +4898,6 @@ def static_ernie_train(ptt, ta, state):
     torch.cuda.empty_cache()
     with torch.no_grad():
         model.load_state_dict(init)
-    del init
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     main, loss = static_ernie_program(ptt, model)
@@ -4899,6 +4927,10 @@ def static_ernie_train(ptt, ta, state):
     static_prof = profile_train(lambda: exe.run(main, feed=feed, fetch_list=[loss],
                                                 return_numpy=False), static_ms)
     state["static_ernie_launches"] = launches
+    n_ops = len(main.ops)
+    del main, loss, exe
+    checked = static_ernie_checked(ptt, ta, state, model, init, feed, timed)
+    del init
 
     def figures(ms, peak, prof):
         tps = B * S / (ms / 1e3)
@@ -4908,14 +4940,102 @@ def static_ernie_train(ptt, ta, state):
                     device_idle_share=prof["device_idle_share"])
 
     log("static_ernie_train", batch=B, seq=S, heads=12, head_dim=head_dim, steps=steps,
-        params_m=n_params / 1e6, capture_s=capture_s, n_ops_recorded=len(main.ops),
+        params_m=n_params / 1e6, capture_s=capture_s, n_ops_recorded=n_ops,
         losses_static=static_losses, losses_eager=eager_losses, loss_rel_err=rel,
         loss_rel_bound=TRAIN_LOSS_RTOL, launches=launches, launches_per_step=per_step[0],
         flops_per_token=flops_per_token, static=figures(static_ms, static_peak, static_prof),
-        eager_ernie_seq128=figures(eager_ms, eager_peak, eager_prof))
+        eager_ernie_seq128=figures(eager_ms, eager_peak, eager_prof),
+        checked=dict(checked, static_ms_unchecked=static_ms))
     log("static_ernie_train profile", static=static_prof, eager=eager_prof)
-    del main, loss, exe, model
+    del model
     torch.cuda.empty_cache()
+
+
+def static_ernie_checked(ptt, ta, state, model, init, feed, timed):
+    """static_ernie_train's 5 steps twice more from the same weights, both
+    under deterministic algorithms (the loss's gather and the embedding
+    backward may sum with atomics) and with a fed loss scale of 1.0: once
+    plain, once with FLAGS_check_nan_inf on and a compile-cache directory
+    set. Limits: losses bit-equal, exact launches, one ledger `miss` and
+    then hits; then a NaN scale makes the Executor raise GuardianAnomaly
+    naming static_executor, with a flight-recorder dump that parses.
+    Returns the figures (ms a step with the check and without)."""
+    from paddle_tpu_torch import compile_cache as cc
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch import telemetry
+
+    work = tempfile.mkdtemp(prefix="static_checked_")
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.filterwarnings("ignore", message=".*deterministic.*")
+    feed = dict(feed, loss_scale=np.ones(1, np.float32))
+
+    def hits():
+        fam = telemetry.default_registry().get("paddle_tpu_compile_cache_hits_total")
+        return sum(c.value for c in fam.children()
+                   if dict(c.labels) == {"origin": "static_executor", "outcome": "hit"}) if fam else 0
+
+    def five_steps(checked):
+        with torch.no_grad():
+            model.load_state_dict(init)
+        if checked:
+            os.environ[cc.store.ENV_DIR] = os.path.join(work, "cache")
+            cc.configure(os.path.join(work, "cache"))
+            ptt.set_flags({"FLAGS_check_nan_inf": True})
+        main, loss = static_ernie_program(ptt, model, loss_scale_feed=True)
+        exe = static.Executor()
+        cc.ledger.reset()
+        hits0 = hits()
+        ta.reset_launch_counts()
+        per_step = []
+
+        def run():
+            before = dict(ta.LAUNCHES)
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)
+            per_step.append({k: ta.LAUNCHES[k] - before[k] for k in ERNIE_PER_STEP})
+            return lv
+
+        losses, ms = timed(run)
+        return dict(losses=losses, ms=ms, per_step=per_step, launches=dict(ta.LAUNCHES),
+                    events=[(e["origin"], e["outcome"]) for e in cc.ledger.events()],
+                    hits=hits() - hits0, main=main, loss=loss, exe=exe)
+
+    problems = []
+    try:
+        plain = five_steps(False)
+        del plain["main"], plain["loss"], plain["exe"]
+        recorder = ptt.FlightRecorder(name="static_ernie", crash_dir=os.path.join(work, "crash"))
+        chk = five_steps(True)
+        if chk["losses"] != plain["losses"]:
+            problems.append(f"checked losses {chk['losses']} != unchecked {plain['losses']}")
+        if any(d != ERNIE_PER_STEP for d in chk["per_step"] + plain["per_step"]):
+            problems.append(f"launches per step {chk['per_step']} != {ERNIE_PER_STEP}")
+        if chk["events"] != [("static_executor", "miss")] or chk["hits"] != STATIC_ERNIE_STEPS - 1:
+            problems.append(f"ledger events {chk['events']}, hits {chk['hits']}")
+        bad = dict(feed, loss_scale=np.full(1, np.nan, np.float32))
+        try:
+            chk["exe"].run(chk["main"], feed=bad, fetch_list=[chk["loss"]], return_numpy=False)
+            problems.append("a NaN batch raised nothing")
+        except ptt.GuardianAnomaly as e:
+            if "static_executor" not in str(e):
+                problems.append(f"the anomaly does not name static_executor: {e}")
+            dumps = [p for p in e.dump_paths if p.startswith(work)]
+            doc = json.load(open(dumps[0])) if dumps else {}
+            if doc.get("reason") != "compiled_state:static_executor" or not recorder.records():
+                problems.append(f"flight recorder dump {dumps}: reason {doc.get('reason')}")
+    finally:
+        ptt.set_flags({"FLAGS_check_nan_inf": False})
+        os.environ.pop(cc.store.ENV_DIR, None)
+        cc.configure(None)
+        torch.use_deterministic_algorithms(det)
+    if problems:
+        raise AssertionError("static_ernie_train (checked): " + "; ".join(problems))
+    state["static_ernie_checked_launches"] = chk["launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(deterministic_ms_per_step=plain["ms"], checked_ms_per_step=chk["ms"],
+                check_cost_ms=chk["ms"] - plain["ms"], losses=chk["losses"],
+                losses_bit_equal=True, ledger_events=chk["events"], ledger_hits=chk["hits"],
+                launches=chk["launches"], nan_batch="GuardianAnomaly(static_executor)")
 
 
 def static_parity(ptt, ta):
@@ -5671,6 +5791,377 @@ def static_nn_parity(ptt, ta):
         worst_case=max(worst, key=worst.get), by_case={k: round(v, 4) for k, v in worst.items()})
 
 
+
+# ---------------------------------------------------------------------------
+# the training guardian, the profiler and the compile cache on the card
+# ---------------------------------------------------------------------------
+
+GUARD_STEPS = 10
+GUARD_NAN_AT = 3  # loop index of the injected NaN: after the first snapshot (step 2)
+GUARD_PAIRS = 3  # plain/guarded step pairs timed in turns (A B B A)
+GUARD_FLOP_RTOL = 0.10
+DIGEST_CPU_ELEMS = 1 << 24  # elements of each flat moment digested again on the CPU
+
+
+def llama_step_flops(cfg, batch, seq) -> float:
+    """The analytic FLOPs of one training step of LlamaForCausalLM that
+    counting_flops() counts: 6 FLOPs a weight a token for every Linear
+    (forward, dX, dW: the q, k, v, o, gate, up and down projections of each
+    layer and the LM head; the embedding lookup is no matmul), and the
+    flash kernels' model FLOPs, 12 b h d a causal (query, key) pair a layer
+    (forward 4, backward 8; ops.attention.flash_flops)."""
+    from paddle_tpu_torch.ops.attention import attended_pairs
+
+    h, heads = cfg["hidden_size"], cfg["num_attention_heads"]
+    kv = cfg.get("num_key_value_heads") or heads
+    d = h // heads
+    per_layer = h * h + 2 * h * kv * d + h * h + 3 * h * cfg["intermediate_size"]
+    n_mm = cfg["num_hidden_layers"] * per_layer + h * cfg["vocab_size"]
+    attn = 12.0 * batch * heads * d * attended_pairs(seq, seq, True) * cfg["num_hidden_layers"]
+    return 6.0 * n_mm * batch * seq + attn
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def guarded_train_bf16(ptt, ta, state, steps=GUARD_STEPS):
+    """train_bf16's configuration (Llama-3-8B layer shape, 4 layers, S4096,
+    B1, O1 bf16, fused AdamW with a bf16 moment2) under FLAGS_check_nan_inf
+    and TrainingGuardian(policy="rollback") with FLAGS_lkg_interval 2 and
+    FLAGS_lkg_ring 2: 10 steps inside a Profiler (one record window,
+    export_chrome_tracing) and profiler.benchmark(), a FaultPlan injecting
+    guardian.grad_nan once after the first snapshot. Limits: the injected
+    step rolls back and the state equals the snapshot bit for bit (the
+    digest, card against CPU too), exact launches (no B5 for the rolled
+    back step), finite losses, the trace holds the hand-written kernels'
+    device events, perf_report() validates, and the counted FLOPs are
+    within 10% of llama_step_flops."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed.resilience import fault_injection as fi
+    from paddle_tpu_torch.framework import guardian as G
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.profiler import perf_attribution as pa
+
+    cfg = dict(LLAMA3_8B, num_hidden_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ptt.set_flags({"FLAGS_fused_optimizer": True, "FLAGS_check_nan_inf": True,
+                   "FLAGS_lkg_interval": 2, "FLAGS_lkg_ring": 2})
+    ptt.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset()
+    model = LlamaForCausalLM(**cfg, device="cuda")
+    opt = ptt.optimizer.AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                              moment2_dtype="bfloat16")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, cfg["vocab_size"],
+                                                            (1, TRAIN_SEQ))).cuda()
+    work = tempfile.mkdtemp(prefix="guarded_train_")
+    guardian = ptt.TrainingGuardian(opt, policy="rollback", crash_dir=os.path.join(work, "crash"))
+    rollback_ms = []
+    rollback = guardian.rollback
+
+    def timed_rollback():
+        out, ms = _synced_ms(rollback)
+        rollback_ms.append(ms)
+        return out
+
+    guardian.rollback = timed_rollback
+
+    def fwd_bwd():
+        with ptt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        return loss
+
+    trace_dir = os.path.join(work, "trace")
+    sched = profiler.make_scheduler(closed=5, ready=1, record=2, repeat=1)
+    bench = profiler.benchmark()
+    for stat in (bench.reader_cost, bench.batch_cost, bench.ips_stat):
+        stat.skip_n = 2  # its default skips 10 warm-up steps: the whole run
+    verdicts, losses, step_ms, per_step, step_peak, pre_digest = [], [], [], [], [], None
+    # the main path: every count 0 before it, read after it
+    ta.reset_launch_counts()
+    with profiler.Profiler(scheduler=sched,
+                           on_trace_ready=profiler.export_chrome_tracing(trace_dir)) as prof:
+        for i in range(steps):
+            fi.install_plan(fi.FaultPlan(seed=0).add("guardian.grad_nan", "corrupt")
+                            if i == GUARD_NAN_AT else None)
+            before = dict(ta.LAUNCHES)
+            if i == GUARD_NAN_AT:
+                pre_digest = G.digest_arrays(guardian.snapshot_tensors())
+
+            def one():
+                loss = fwd_bwd()
+                verdict = guardian.step(loss)
+                opt.clear_grad()
+                return loss, verdict
+
+            torch.cuda.reset_peak_memory_stats()
+            (loss, verdict), ms = _synced_ms(one)
+            step_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+            fi.install_plan(None)
+            prof.step(num_samples=TRAIN_SEQ)
+            verdicts.append(verdict)
+            losses.append(loss.item())
+            step_ms.append(ms)
+            per_step.append({k: ta.LAUNCHES[k] - before[k] for k in TRAIN_PER_STEP})
+            if i == GUARD_NAN_AT:
+                snap = guardian.snapshots[-1]
+                post = G.digest_arrays(guardian.state_tensors())
+                hosts_ok = all(h[k] == v for h, k, v in snap["slots"]
+                               if not isinstance(v, torch.Tensor))
+                if not (verdict == "rolled_back" and post.tolist() == pre_digest.tolist()
+                        and hosts_ok and opt._step_count == snap["step"]):
+                    raise AssertionError(
+                        f"guarded_train_bf16: step {i} verdict {verdict}, state digest equal "
+                        f"{post.tolist() == pre_digest.tolist()}, host state equal {hosts_ok}, "
+                        f"@step {opt._step_count} vs the snapshot's {snap['step']}")
+                # the digest is integer math: the card's equals the CPU's
+                flat = [t for t, _ in opt._fused_state_entries()]
+                probe = [next(model.parameters())] + [t[:DIGEST_CPU_ELEMS] for t in flat]
+                card, cpu = (G.digest_arrays(probe).tolist(),
+                             G.digest_arrays([t.cpu() for t in probe]).tolist())
+                if card != cpu:
+                    raise AssertionError(f"guarded_train_bf16: digest card {card} != cpu {cpu}")
+                rolled_back_to = snap["step"]
+                del snap, probe, flat  # the ring alone holds snapshots: it evicts this one later
+    launches = dict(ta.LAUNCHES)
+    peak = max(step_peak)  # the guarded run's, the ring included
+    expect = ["rolled_back" if i == GUARD_NAN_AT else "ok" for i in range(steps)]
+    clean = verdicts.count("ok")
+    want_launches = {k: steps * TRAIN_LAYERS for k in ("flash_fwd", "flash_bwd_dq",
+                                                        "flash_bwd_dkdv")}
+    want_launches["fused_adamw"] = clean * TRAIN_PER_STEP["fused_adamw"]
+    if verdicts != expect or {k: launches[k] for k in want_launches} != want_launches:
+        raise AssertionError(f"guarded_train_bf16: verdicts {verdicts} (want {expect}), launches "
+                             f"{launches} (want {want_launches})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"guarded_train_bf16: losses not finite: {losses}")
+    # the exported record window holds the hand-written kernels' device events
+    (trace_file,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    trace = json.load(open(trace_file))
+    dev = [e for e in trace["traceEvents"] if e.get("pid") == 1]
+    kern = {k: sum(1 for e in dev if k in e["name"])
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "fused_adamw")}
+    # on the host spans' clock: every device event inside the recorded steps
+    host = [e for e in trace["traceEvents"] if e.get("pid") == 0 and e.get("cat") == "ProfileStep"]
+    lo, hi = min(e["ts"] for e in host), max(e["ts"] + e["dur"] for e in host)
+    outside = sum(1 for e in dev if not lo <= e["ts"] <= hi)
+    if not all(kern.values()) or outside:
+        raise AssertionError(f"guarded_train_bf16: the trace's device events miss a kernel "
+                             f"({kern} of {len(dev)} device events) or {outside} lie outside the "
+                             f"recorded steps")
+    report = pa.perf_report()
+    pa.validate_report(json.loads(json.dumps(report, default=str)))
+    window = [i for i in range(steps) if sched(i).name.startswith("RECORD")]
+    # clean steps that took no snapshot (@step odd after them), not the first
+    plain_idx = [i for i in range(1, steps) if verdicts[i] == "ok" and i % 2 == 0]
+    quiet = [i for i in plain_idx if i not in window]
+    profiled_ms = float(np.mean([step_ms[i] for i in window if i in plain_idx]))
+    quiet_ms = float(np.mean([step_ms[i] for i in quiet]))
+
+    # plain against guarded steps in turns (A B B A ...), no snapshot due
+    ptt.set_flags({"FLAGS_lkg_interval": 10 ** 9})
+
+    def plain():
+        fwd_bwd()
+        opt.step()
+        opt.clear_grad()
+
+    def guarded():
+        loss = fwd_bwd()
+        if guardian.step(loss) != "ok":
+            raise AssertionError("guarded_train_bf16: a paired guarded step was not clean")
+        opt.clear_grad()
+
+    pairs = {"plain": [], "guarded": []}
+    for k in range(GUARD_PAIRS):
+        for name in (("plain", "guarded") if k % 2 == 0 else ("guarded", "plain")):
+            pairs[name].append(_synced_ms(plain if name == "plain" else guarded)[1])
+    loss = fwd_bwd()
+    grads = [p.grad for p in model.parameters()]
+    params = list(model.parameters())
+    check_ms = [_synced_ms(lambda: G.check_arrays(grads, params + [loss.detach()]))[1]
+                for _ in range(5)]
+    check_bytes = nbytes(*grads, *params)
+    del grads, params, loss
+    opt.clear_grad()
+    snap_ms = [_synced_ms(guardian.snapshot)[1] for _ in range(2)]
+    snap_gb = nbytes(*guardian.snapshot_tensors()) / 1e9
+    census, census_ms = _synced_ms(lambda: pa.live_array_census(set_gauges=False))
+    with pa.counting_flops() as count:
+        loss = fwd_bwd()
+        opt.step()
+        opt.clear_grad()
+    torch.cuda.synchronize()
+    want_flops = llama_step_flops(cfg, 1, TRAIN_SEQ)
+    if not abs(count.total - want_flops) <= GUARD_FLOP_RTOL * want_flops:
+        raise AssertionError(f"guarded_train_bf16: counted FLOPs {count.total:.4e} vs the "
+                             f"analytic {want_flops:.4e}: off by more than {GUARD_FLOP_RTOL}")
+    roof = pa.roofline(count.total, 0.0, float(np.median(pairs["guarded"])) / 1e3)
+    state["guarded_launches"] = launches
+    log("guarded_train_bf16", layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=1, steps=steps,
+        verdicts=verdicts, losses=losses, step_ms=step_ms, launches=launches,
+        launches_per_step=per_step, rollback_ms=rollback_ms, rolled_back_to=rolled_back_to,
+        state_digest_equal=True, digest_card_eq_cpu=True,
+        plain_step_ms=pairs["plain"], guarded_step_ms=pairs["guarded"],
+        check_ms=check_ms, check_bytes_gb=check_bytes / 1e9,
+        check_bound_ms=check_bytes / PEAK_BYTES * 1e3, snapshot_ms=snap_ms, snapshot_gb=snap_gb,
+        census_ms=census_ms, census_tensors=census["count"], census_gb=census["bytes"] / 1e9,
+        profiled_step_ms=profiled_ms, unprofiled_step_ms=quiet_ms,
+        profiler_overhead=profiled_ms / quiet_ms - 1.0, record_window=window,
+        trace_device_events=len(dev), trace_kernel_events=kern,
+        trace_window_ms=(hi - lo) / 1e3,
+        benchmark=bench.step_info(unit="tokens/s"), benchmark_batch_cost_s=bench.batch_cost.avg,
+        flops_counted=count.total, flops_dispatched=count.dispatched,
+        flops_kernels=count.kernels, flops_analytic=want_flops,
+        flops_rel_err=count.total / want_flops - 1.0, mfu=roof["mfu"],
+        perf_report_programs=len(report["programs"]), peak_mem_gb=peak,
+        step_peak_gb=step_peak)
+    ptt.set_flags({"FLAGS_check_nan_inf": False, "FLAGS_lkg_interval": 100, "FLAGS_lkg_ring": 2})
+    shutil.rmtree(work, ignore_errors=True)
+    guardian.rollback = rollback
+    del model, opt, guardian
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+COLD_START_PROMPT_LEN = 64
+COLD_START_NEW = 4
+COLD_START_CONSISTENCY = 0.05
+
+
+def cold_start_child(out_path: str) -> int:
+    """One cold-start process (run by cold_start): serve_bf16's engine built
+    from seed-0 weights, one prompt through it for 4 new tokens, with the
+    kernels built into an empty $PADDLE_TPU_KERNEL_BUILD_DIR, or restored
+    from $PADDLE_TPU_COMPILE_CACHE_DIR. Writes its ids, launches, build
+    stats, ledger dump and the compile-cache error counters to out_path."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import compile_cache as cc
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import attention as ta
+    from paddle_tpu_torch.ops.kernels import build
+
+    ptt.set_device("cuda")
+    ptt.seed(0)
+    model = LlamaForCausalLM(**LLAMA3_8B, device="cuda", dtype="bfloat16").eval()
+    prompt = np.random.RandomState(3).randint(1, LLAMA3_8B["vocab_size"],
+                                              COLD_START_PROMPT_LEN).tolist()
+    torch.cuda.synchronize()
+    cc.ledger.reset()
+    ta.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(model, max_seq_len=512, block_size=16, max_batch=1)
+    ids = engine.generate([prompt], max_new_tokens=COLD_START_NEW)[0]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    dump = cc.ledger.dump_json(out_path + ".ledger.json")
+    fam = telemetry.default_registry().get("paddle_tpu_compile_cache_errors_total")
+    errors = {dict(c.labels)["reason"]: c.value for c in fam.children()} if fam else {}
+    libs = sorted(p for p in os.listdir(build.BUILD_DIR) if p.endswith(".so"))
+    json.dump({"ids": ids, "launches": dict(ta.LAUNCHES), "build": dict(build.BUILD_STATS),
+               "ledger": dump, "errors": errors, "libs": libs, "total_s": total_s,
+               "steps": dict(engine.step_counts)}, open(out_path, "w"))
+    return 0
+
+
+def cold_start(ptt, ta, state):
+    """Two processes on one empty PADDLE_TPU_COMPILE_CACHE_DIR, each from a
+    build directory holding no kernel library (cold: nvcc, then persist;
+    warm: restore, no nvcc), then a third after one payload byte of the
+    flash forward's entry is flipped (a counted CRC rejection, that library
+    rebuilt, the rest restored). Each builds serve_bf16's engine (32
+    layers) and serves one prompt for 4 tokens (prefill and decode). Limits:
+    equal ids, the restored libraries byte-equal to the built ones, no nvcc
+    in the warm run, and each run's `python -m paddle_tpu_torch.compile_cache
+    report` components summing to its engine-load -> first-token wall within
+    5%."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="cold_start_")
+    cache = os.path.join(work, "cache")
+    runs = {}
+    for name in ("cold", "warm", "corrupt"):
+        if name == "corrupt":
+            entries = [e for e in os.listdir(cache) if not e.startswith(".")]
+            metas = {e: json.load(open(os.path.join(cache, e, "meta.json"))) for e in entries}
+            (victim,) = [e for e, m in metas.items() if m["name"] == "flash_fwd"]
+            pay = os.path.join(cache, victim, "payload.bin")
+            raw = bytearray(open(pay, "rb").read())
+            raw[len(raw) // 2] ^= 0x01
+            open(pay, "wb").write(bytes(raw))
+        bdir = os.path.join(work, f"build_{name}")
+        os.makedirs(bdir)
+        out = os.path.join(work, f"{name}.json")
+        env = dict(os.environ, PADDLE_TPU_COMPILE_CACHE_DIR=cache, PADDLE_TPU_KERNEL_BUILD_DIR=bdir)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cold-start-child",
+                               out], env=env, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cold_start: the {name} process failed:\n{proc.stderr[-4000:]}")
+        res = json.load(open(out))
+        cli = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.compile_cache", "report",
+                              "--input", res["ledger"], "--json"], capture_output=True, text=True,
+                             timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if cli.returncode != 0:
+            raise AssertionError(f"cold_start: report CLI failed on the {name} run: {cli.stderr}")
+        res["report"] = json.loads(cli.stdout)
+        res["process_s"] = wall_s
+        res["lib_bytes"] = {lib: open(os.path.join(bdir, lib), "rb").read() for lib in res["libs"]}
+        runs[name] = res
+    cold, warm, bad = runs["cold"], runs["warm"], runs["corrupt"]
+    n_libs = len(cold["libs"])
+    problems = []
+    if not (cold["ids"] == warm["ids"] == bad["ids"] and len(cold["ids"]) == COLD_START_NEW):
+        problems.append(f"ids differ: {cold['ids']} {warm['ids']} {bad['ids']}")
+    if not (cold["build"]["nvcc_runs"] == n_libs and cold["build"]["restored"] == 0):
+        problems.append(f"cold build {cold['build']}")
+    if not (warm["build"]["nvcc_runs"] == 0 and warm["build"]["restored"] == n_libs):
+        problems.append(f"warm build {warm['build']} (no nvcc, {n_libs} restores)")
+    if warm["lib_bytes"] != cold["lib_bytes"]:
+        problems.append("the restored libraries differ from the built ones")
+    if not (bad["build"]["nvcc_runs"] == 1 and bad["build"]["restored"] == n_libs - 1
+            and bad["errors"].get("crc_mismatch") == 1):
+        problems.append(f"corrupt run: build {bad['build']}, errors {bad['errors']}")
+    for name, res in runs.items():
+        rep = res["report"]
+        outcomes = rep.get("outcomes", {})
+        want = ({"miss": n_libs, "persist": n_libs} if name == "cold" else
+                {"restore": n_libs} if name == "warm" else
+                {"miss": 1, "persist": 1, "restore": n_libs - 1})
+        if not (rep.get("available") and abs(rep["consistency"] - 1.0) <= COLD_START_CONSISTENCY
+                and outcomes == want):
+            problems.append(f"{name} report {rep} (outcomes want {want})")
+    if problems:
+        raise AssertionError("cold_start: " + "; ".join(problems))
+    launches = {}
+    for res in runs.values():
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    state["cold_start_launches"] = launches
+    comp = {name: res["report"]["components"] for name, res in runs.items()}
+    log("cold_start", layers=LLAMA3_8B["num_hidden_layers"], prompt_len=COLD_START_PROMPT_LEN,
+        new_tokens=COLD_START_NEW, ids=cold["ids"],
+        wall_s={n: r["report"]["wall_s"] for n, r in runs.items()},
+        consistency={n: r["report"]["consistency"] for n, r in runs.items()},
+        components=comp, nvcc_s=cold["build"]["nvcc_s"], restore_s=warm["build"]["restore_s"],
+        corrupt_run_nvcc_s=bad["build"]["nvcc_s"], libs=n_libs,
+        lib_mb=sum(len(b) for b in cold["lib_bytes"].values()) / 1e6,
+        process_s={n: r["process_s"] for n, r in runs.items()},
+        engine_to_ids_s={n: r["total_s"] for n, r in runs.items()},
+        steps=cold["steps"], launches=launches, errors_corrupt_run=bad["errors"])
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
@@ -5684,13 +6175,18 @@ def main(argv=None) -> int:
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
                                         "ernie_finetune,nn_surface,transformer_parity,"
-                                        "transformer_base",
+                                        "transformer_base,guarded_train_bf16,cold_start",
                     help="comma list of phases to run (default: all)")
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--cold-start-child", metavar="OUT", default=None,
+                    help=argparse.SUPPRESS)  # one cold_start process (cold_start runs it)
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 2
+    if args.cold_start_child:
+        return cold_start_child(args.cold_start_child)
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import attention as ta
     from paddle_tpu_torch.ops.kernels import build
@@ -5861,6 +6357,8 @@ def main(argv=None) -> int:
             train_parity(ptt, ta, cfg)
     if "train_bf16" in phases:
         train_bf16(ptt, ta, state)
+    if "guarded_train_bf16" in phases:  # train_bf16 under the guardian and the profiler
+        guarded_train_bf16(ptt, ta, state)
     if "train_recompute" in phases:  # bench.py:461-467's recompute and micro-batch rungs
         train_recompute(ptt, ta, state)
     if "train_fp16_scaler" in phases:
@@ -5917,6 +6415,8 @@ def main(argv=None) -> int:
         transformer_parity(ptt, ta)
     if "transformer_base" in phases:  # Vaswani et al. 2017 base, PaddleNLP's recipe
         transformer_base(ptt, ta, state)
+    if "cold_start" in phases:  # serve_bf16's engine load through the compile cache
+        cold_start(ptt, ta, state)
     for kname, rows in state.get("transformer_by_shape", {}).items():
         rec = records.setdefault(kname, {})
         rec["by_shape"] = rec.get("by_shape", []) + rows
@@ -5950,7 +6450,10 @@ def main(argv=None) -> int:
                "deploy_ernie": state.get("deploy_ernie_launches", {}),
                "deploy_llama_static": state.get("deploy_llama_launches", {}),
                "deploy_parity": state.get("deploy_parity_launches", {}),
-               "static_resnet50_train": state.get("static_resnet_launches", {})}
+               "static_resnet50_train": state.get("static_resnet_launches", {}),
+               "guarded_train_bf16": state.get("guarded_launches", {}),
+               "static_ernie_train_checked": state.get("static_ernie_checked_launches", {}),
+               "cold_start": state.get("cold_start_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():

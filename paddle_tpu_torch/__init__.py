@@ -86,6 +86,19 @@ paddle's and which stay torch's.
     decoder = paddle.nn.BeamSearchDecoder(cell, start_token=0, end_token=1, beam_size=4)
     ids, _ = paddle.nn.dynamic_decode(decoder, inits=caches, max_step_num=114, memory=mem)
 
+    # a guarded, profiled training loop: a NaN step rolls back to the last
+    # snapshot; the card's kernels land in the exported chrome trace
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    guardian = paddle.TrainingGuardian(opt, policy="rollback", lkg_interval=100)
+    with paddle.profiler.Profiler(scheduler=(2, 5), on_trace_ready=
+                                  paddle.profiler.export_chrome_tracing("./trace")) as prof:
+        for ids in batches:
+            loss, _ = model(ids, labels=ids)
+            loss.backward()
+            guardian.step(loss)       # 'ok' | 'skipped' | 'rolled_back'
+            opt.clear_grad()
+            prof.step()
+
 The nn remainder (activations, losses, norms, pools, the functional
 common set, Layer's paddle methods, initializers, nn.utils, decode) is
 plain torch too; attention reaches the flash kernels where a call has no
@@ -102,6 +115,8 @@ from .framework.device import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, TPUP
                                device_count, get_device, set_device)
 from .framework.dtype import convert_dtype, get_default_dtype, set_default_dtype
 from .framework.flags import get_flags, set_flags
+from .framework.guardian import (DesyncDetector, FlightRecorder, GuardianAnomaly,
+                                 TrainingGuardian)
 from .framework.io import load, save
 from .framework.random import get_rng_state, seed, set_rng_state
 from .jit import to_static
@@ -121,7 +136,7 @@ from .ops.linalg import (bmm, cdist, cholesky, cholesky_solve, corrcoef, cov, di
                          inverse, matmul, mm, mv, norm)
 from .ops.einsum import einsum  # noqa: E402
 from .ops.inplace import *  # noqa: F401,F403,E402
-from . import autograd, linalg, metric  # noqa: E402
+from . import autograd, linalg, metric, profiler  # noqa: E402
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,  # noqa: E402
                        set_grad_enabled)
 

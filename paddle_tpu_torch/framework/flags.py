@@ -79,8 +79,9 @@ define_flag(
     "update in one fused AdamW kernel launch per step",
 )
 define_flag("FLAGS_check_nan_inf", False,
-            "scan what a static run writes back for nan/inf (the training guardian; not "
-            "ported yet: the static Executor raises while it is on)")
+            "check for nan/inf: TrainingGuardian.step's fused check over loss, grads and params "
+            "(framework/guardian.py), and the static Executor's check of the state a run "
+            "writes back (guardian.check_compiled_state)")
 define_flag(
     "FLAGS_verify_program",
     True,
@@ -103,4 +104,41 @@ define_flag(
     "",
     "comma-separated pass names (or 'all') whose to_text() diff is printed to stderr after "
     "the pass rewrites a program; empty disables",
+)
+# Training guardian (framework/guardian.py): numerical anomaly policy,
+# last-known-good rollback ring, cross-rank desync digest, crash flight
+# recorder. The JAX package's defaults (paddle_tpu/framework/flags.py).
+define_flag(
+    "FLAGS_guardian_policy",
+    "raise",
+    "what TrainingGuardian.step does on a numerical anomaly: 'raise' (dump the flight "
+    "recorder + GuardianAnomaly), 'skip_step' (drop the update, count the step as skipped in "
+    "GradScaler accounting), or 'rollback' (restore the newest last-known-good snapshot and "
+    "re-seed the generator)",
+)
+define_flag(
+    "FLAGS_guardian_abs_ceiling",
+    0.0,
+    "abs-magnitude ceiling for the guardian's fused numerics check over loss/grads/params "
+    "(0 disables the ceiling; non-finiteness is always checked when FLAGS_check_nan_inf is on)",
+)
+define_flag(
+    "FLAGS_lkg_interval",
+    100,
+    "steps between last-known-good on-device snapshots of params + optimizer state (flat-bucket "
+    "aware); the rollback policy restores the newest one",
+)
+define_flag("FLAGS_lkg_ring", 2, "how many last-known-good snapshots to keep")
+define_flag(
+    "FLAGS_desync_interval",
+    0,
+    "steps between cross-rank desync digest checks (parameter and bucket checksums + RNG state "
+    "+ step counter compared over the group); 0 disables the periodic check, explicit "
+    "check_desync() calls always run",
+)
+define_flag(
+    "FLAGS_flight_recorder_len",
+    256,
+    "per-step records kept in the guardian flight recorder ring (dumped as JSON to the crash "
+    "dir on a guardian abort)",
 )

@@ -89,3 +89,15 @@ def drawn_for_real():
         stack.enter_context(unset_fake_temporarily())
         stack.enter_context(disable_proxy_modes_tracing())
     return stack
+
+
+def fold_in(data: int) -> None:
+    """Derive each generator's state from its current state and `data`
+    (the JAX package's `Generator.fold_in`): deterministic, and different
+    for each `data`. The training guardian's rollback restores the
+    snapshot's states and folds in the rollback count, so the retried steps
+    draw fresh but reproducible dropout instead of replaying the diverged
+    draws."""
+    for gen in _generators.values():
+        s = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device=gen.device).item())
+        gen.manual_seed((s ^ (int(data) * 0x9E3779B97F4A7C15)) & (2 ** 63 - 1))

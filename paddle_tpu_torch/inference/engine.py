@@ -5,9 +5,15 @@ One engine owns its parameter set, a BlockPool on the model's device, and
 the shape-bucket arithmetic: prompts are padded into (1, seq_bucket) prefill
 steps and in-flight sequences into (batch_bucket, 1) decode steps, with
 the JAX package's bucket sets. Steps run eagerly under
-`torch.inference_mode()`; the JAX package's AOT-compiled bucket programs,
-mesh placement and compile-cache plumbing have no part here (mesh/TP
-placement and checkpoint swaps arrive with the distributed runtime).
+`torch.inference_mode()`: the JAX package's AOT-compiled bucket programs
+have no counterpart, so the engine records no compile events of its own;
+the kernel libraries its first step builds or restores record theirs
+(ops/kernels/build.py). It leaves the compile ledger's cold-start marks:
+`engine_load_start` and an `engine_init` span from the constructor, a
+`prewarm` span, and `first_token` when the first logits (outside prewarm)
+reach the host, which `python -m paddle_tpu_torch.compile_cache report`
+decomposes. Mesh/TP placement and checkpoint swaps arrive with the
+distributed runtime.
 
 Parameters: the engine holds references to the model's tensors at
 construction (`self.params`, as the JAX engine holds the model's arrays)
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,6 +84,7 @@ class InferenceEngine:
                  num_blocks: Optional[int] = None, max_batch: int = 8,
                  decode_batch_buckets: Optional[Sequence[int]] = None,
                  kv_dtype: Optional[str] = None):
+        t_init = time.monotonic()
         cfg = dict(getattr(model, "config", {}))
         if not cfg:
             raise ValueError("InferenceEngine needs a model with a .config dict "
@@ -112,6 +120,13 @@ class InferenceEngine:
         # bumped by every load_weights(); the fleet exports it per replica
         # so a half-finished rollout is visible in telemetry
         self.weights_version = 0
+        self._first_token_marked = False
+        self._prewarming = False
+        if telemetry.enabled():
+            from ..compile_cache import ledger as _ledger
+
+            _ledger.mark("engine_load_start", t_init)
+            _ledger.span("engine_init", t_init, time.monotonic())
 
     # ---- weight hot swap ----
     def load_weights(self, state) -> int:
@@ -166,16 +181,26 @@ class InferenceEngine:
         the trash page. `include_prefill=False` warms a decode-tier engine
         (streamed admission never runs a bucketed prefill); `extend_q` adds
         the extend family for those query lengths. The steps are counted in
-        step_counts like any other. Returns a copy of step_counts."""
-        if include_prefill:
-            for S in self.prefill_buckets:
-                self.prefill([1] * S, [])
-        for B in self.decode_batch_buckets if include_decode else ():
-            self.decode([1] * B, [0] * B, [1] * B, [[]] * B)
-        for q in extend_q:
-            for B in self.decode_batch_buckets:
-                self.extend([[1] * int(q)] * B, [list(range(int(q)))] * B, [[]] * B,
-                            q_len=int(q))
+        step_counts like any other; their logits are not the first token.
+        Returns a copy of step_counts."""
+        t0 = time.monotonic()
+        self._prewarming = True
+        try:
+            if include_prefill:
+                for S in self.prefill_buckets:
+                    self.prefill([1] * S, [])
+            for B in self.decode_batch_buckets if include_decode else ():
+                self.decode([1] * B, [0] * B, [1] * B, [[]] * B)
+            for q in extend_q:
+                for B in self.decode_batch_buckets:
+                    self.extend([[1] * int(q)] * B, [list(range(int(q)))] * B, [[]] * B,
+                                q_len=int(q))
+        finally:
+            self._prewarming = False
+        if telemetry.enabled():
+            from ..compile_cache import ledger as _ledger
+
+            _ledger.span("prewarm", t0, time.monotonic())
         return dict(self.step_counts)
 
     # ---- buckets ----
@@ -190,7 +215,14 @@ class InferenceEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _logits(self, t: torch.Tensor) -> np.ndarray:
-        return t.float().cpu().numpy()
+        out = t.float().cpu().numpy()
+        if not (self._first_token_marked or self._prewarming):
+            self._first_token_marked = True
+            if telemetry.enabled():
+                from ..compile_cache import ledger as _ledger
+
+                _ledger.mark("first_token")
+        return out
 
     # ---- steps ----
     @torch.inference_mode()

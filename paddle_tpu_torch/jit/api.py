@@ -11,6 +11,10 @@ CUDA graph is later work.
 `capture_program` records one eager run into a static Program
 (paddle.static), which the Executor replays and the pass pipeline
 rewrites.
+
+A call samples the memory watermark at its end, as the JAX package's
+compiled step does (profiler.perf_attribution.sample_watermark); it
+compiles nothing, so it records no compile-ledger event.
 """
 from __future__ import annotations
 
@@ -28,7 +32,11 @@ class StaticFunction:
         functools.update_wrapper(self, fn, updated=[])
 
     def __call__(self, *args, **kwargs):
-        return self._fn(*args, **kwargs)
+        out = self._fn(*args, **kwargs)
+        from ..profiler import perf_attribution as _pa
+
+        _pa.sample_watermark(tag="to_static_step")
+        return out
 
 
 def enable_to_static(enable_to_static_bool) -> None:

@@ -23,8 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..framework import random as _random
-from .launches import (LAUNCH_VARIANTS, LAUNCHES, count_launch,  # noqa: F401  (re-exported)
-                       reset_launch_counts)
+from .launches import (LAUNCH_VARIANTS, LAUNCHES, count_flops,  # noqa: F401  (re-exported)
+                       count_launch, reset_launch_counts)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
 # the storage types of the flash kernels (B1-B3)
@@ -178,6 +178,23 @@ def _flash_plain(q, k, v, causal, scale, dropout_p, seed, mask=None) -> Tuple[to
     return out.to(q.dtype).transpose(1, 2), lse
 
 
+def attended_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs one head attends: sq * sk, or under bottom-right
+    causal alignment (sk >= sq) the keys up to each query's diagonal."""
+    if not causal:
+        return sq * sk
+    return sq * (sk - sq) + sq * (sq + 1) // 2
+
+
+def flash_flops(b: int, sq: int, sk: int, h: int, d: int, causal: bool) -> float:
+    """The model FLOPs of one flash forward (QK^T and PV, 2 FLOPs a
+    multiply-add): 4 b h d over the attended pairs. Its backward is twice
+    that, split evenly between the dq kernel (dP = dO V^T, dQ = dS K) and
+    the dk/dv kernel (dV = P^T dO, dK = dS^T Q); the kernels' recompute of
+    QK^T is not model work and is not counted."""
+    return 4.0 * b * h * d * attended_pairs(sq, sk, causal)
+
+
 def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, torch.Tensor]:
     from .kernels import build
 
@@ -207,6 +224,7 @@ def _flash_cuda(q, k, v, causal, scale, dropout_p, seed) -> Tuple[torch.Tensor, 
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_fwd")
     count_launch("flash_fwd", q.dtype, variant)
+    count_flops(flash_flops(b, sq, sk, h, d, causal))
     return out, lse
 
 
@@ -284,6 +302,7 @@ def _bwd_launch(fn_name, outs, q, k, v, do, lse, delta, causal, scale, dropout_p
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, fn_name)
     count_launch(fn_name, q.dtype, variant)
+    count_flops(flash_flops(b, sq, sk, h, d, causal))
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, dropout_p, seed) -> torch.Tensor:

@@ -3,9 +3,21 @@
 Each `.cu` source in this directory compiles with `nvcc` for `sm_90a` into
 its own shared library with a plain C interface, loaded with ctypes. All
 sources compile in parallel (one nvcc process each) at the first CUDA use
-of any kernel, into `_build/` next to this file; a library's file name
-carries a hash of its sources and flags, so an edited source rebuilds and
-an unchanged one is reused. Importing this module builds nothing.
+of any kernel, into `_build/` next to this file (or the directory
+$PADDLE_TPU_KERNEL_BUILD_DIR names); a library's file name carries a hash
+of its sources and flags, so an edited source rebuilds and an unchanged
+one is reused. Importing this module builds nothing.
+
+With a persistent compile cache (PADDLE_TPU_COMPILE_CACHE_DIR, or
+compile_cache.configure), a missing library is looked up in the store
+first, keyed by that hash and the topology meta (card, compute
+capability, torch and CUDA versions, world size): a hit restores the
+library's bytes into the build directory (ledger `restore`, origin
+`kernel_build`) and runs no nvcc; a miss runs nvcc (`miss`, each
+library's seconds the wall it added to the parallel build, so one
+build's events sum to its wall) and persists the library (`persist`). A
+rejected entry (CRC, no COMPLETE, another topology) is counted under its
+reason and rebuilt. `BUILD_STATS` counts nvcc processes and restores.
 
     python -m paddle_tpu_torch.ops.kernels.build     # build now, print ptxas info
 """
@@ -23,7 +35,10 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 _HERE = Path(__file__).resolve().parent
-BUILD_DIR = _HERE / "_build"
+BUILD_DIR = Path(os.environ.get("PADDLE_TPU_KERNEL_BUILD_DIR") or (_HERE / "_build"))
+# this process's builds: nvcc processes started, libraries restored from the
+# compile cache, and the wall seconds of each
+BUILD_STATS = {"nvcc_runs": 0, "nvcc_s": 0.0, "restored": 0, "restore_s": 0.0}
 
 # library name -> source file in this directory
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_attn": "paged_attn.cu", "flash_bwd": "flash_bwd.cu",
@@ -73,11 +88,67 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _library_path(name: str) -> Path:
+def _source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (SOURCES[name],) + _HEADERS:
         h.update((_HERE / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()
+
+
+def _library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash(name)[:16]}.so"
+
+
+def _fingerprint(name: str) -> str:
+    """The compile cache's fingerprint of library `name` (its sources and flags)."""
+    from ... import compile_cache as _cc
+
+    return _cc.fingerprint_text(f"kernel-library-v1|{name}|{_source_hash(name)}")
+
+
+def _restore(todo: Dict[str, Path]) -> Dict[str, Path]:
+    """Restore what the compile cache holds of `todo` into the build
+    directory; returns the libraries still to build."""
+    from ... import compile_cache as _cc
+
+    st = _cc.active_store()
+    if st is None:
+        return todo
+    meta = _cc.topology_meta()
+    left = {}
+    for name, path in todo.items():
+        t0 = time.perf_counter()
+        fp = _fingerprint(name)
+        got = st.get(_cc.entry_key(fp, meta), expect_meta=meta)
+        if got is None:
+            left[name] = path
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(got[0])
+        os.replace(tmp, path)
+        dt = time.perf_counter() - t0
+        BUILD_STATS["restored"] += 1
+        BUILD_STATS["restore_s"] += dt
+        _cc.record("kernel_build", name, "restore", seconds=dt, fingerprint=fp,
+                   signature=path.name)
+    return left
+
+
+def _persist(name: str, path: Path, seconds: float, nvcc_s: float) -> None:
+    """Record one nvcc build in the ledger and store the library."""
+    from ... import compile_cache as _cc
+
+    fp = _fingerprint(name)
+    _cc.record("kernel_build", name, "miss", seconds=seconds, fingerprint=fp,
+               signature=path.name, extra={"nvcc_s": nvcc_s})
+    st = _cc.active_store()
+    if st is None:
+        return
+    t0 = time.perf_counter()
+    meta = _cc.make_meta("kernel_build", name, fp, signature=path.name)
+    if st.put(_cc.entry_key(fp, meta["topology"]), path.read_bytes(), meta):
+        _cc.record("kernel_build", name, "persist", seconds=time.perf_counter() - t0,
+                   fingerprint=fp)
 
 
 def _nvcc(src: Path, out: Path, defines: Optional[Dict[str, int]] = None) -> subprocess.Popen:
@@ -87,24 +158,36 @@ def _nvcc(src: Path, out: Path, defines: Optional[Dict[str, int]] = None) -> sub
 
 
 def build(force: bool = False) -> Dict[str, str]:
-    """Compile every kernel library that is missing (all in parallel).
-    Returns {name: nvcc output} for the libraries compiled by this call;
-    raises with the compiler's output when one fails."""
+    """Compile every kernel library that is missing (all in parallel),
+    after restoring what the compile cache holds (`force` rebuilds every
+    library and restores nothing). Returns {name: nvcc output} for the
+    libraries compiled by this call; raises with the compiler's output
+    when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: _library_path(n) for n in SOURCES}
     if not force:
-        todo = {n: p for n, p in todo.items() if not p.exists()}
+        todo = _restore({n: p for n, p in todo.items() if not p.exists()})
     if not todo:
         return {}
-    procs = {}
+    t_start = time.perf_counter()
+    procs, ends = {}, {}
     for name, path in todo.items():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (_nvcc(_HERE / SOURCES[name], tmp), tmp, path)
+    BUILD_STATS["nvcc_runs"] += len(procs)
     logs, failed = {}, []
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        ends[name] = time.perf_counter()
+
+    waiters = [threading.Thread(target=wait, args=(n, p)) for n, (p, _, _) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        (BUILD_DIR / f"{name}.log").write_text(out)
+        (BUILD_DIR / f"{name}.log").write_text(logs[name])
         if proc.returncode != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
@@ -114,6 +197,12 @@ def build(force: bool = False) -> Dict[str, str]:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n" + "\n".join(logs[n] for n in failed)
         )
+    BUILD_STATS["nvcc_s"] += max(ends.values()) - t_start
+    # each library's share of the build's wall: what its finish added
+    prev = t_start
+    for name in sorted(ends, key=ends.get):
+        _persist(name, todo[name], ends[name] - prev, ends[name] - t_start)
+        prev = ends[name]
     return logs
 
 

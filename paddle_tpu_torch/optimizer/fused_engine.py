@@ -105,7 +105,25 @@ class FlatAdamWEngine:
     def _bucket_for(self, key, plist):
         b = self.buckets.get(key)
         if b is None or b["ids"] != tuple(id(p) for p, _ in plist):
-            b = self._build_bucket(key, plist)
+            from .. import telemetry as _tm
+
+            if not _tm.enabled():
+                return self._build_bucket(key, plist)
+            from ..profiler import perf_attribution as _pa
+            from ..profiler.utils import RecordEvent, TracerEventType
+
+            name = f"bucket[{str(key[0]).replace('torch.', '')},n={sum(p.numel() for p, _ in plist)}]"
+            with RecordEvent(f"FlatAdamWEngine.build_{name}", TracerEventType.Optimization):
+                b = self._build_bucket(key, plist)
+            # one record a bucket (nothing is compiled: the kernel is built
+            # once for every bucket): the bytes one launch must move
+            m2_bytes = b["moment2"].element_size()
+            p_bytes = plist[0][0].element_size()
+            # p, m1 and m2 read and written, the f32 grad read
+            _pa.record_compiled(
+                "fused_optimizer", name,
+                bytes_accessed=float(b["n_pad"]) * (2 * p_bytes + 2 * 4 + 2 * m2_bytes + 4),
+                extra={"n_elems": b["n_pad"], "m2_dtype": str(b["moment2"].dtype)})
         return b
 
     def step(self, groups):
@@ -183,6 +201,27 @@ class FlatAdamWEngine:
             pend[("moment2", pid)] = b["moment2"][off:off + size].reshape(shape).clone()
             pend[("beta1_pow", pid)] = b["beta1_pow"]
             pend[("beta2_pow", pid)] = b["beta2_pow"]
+
+    def state_slots(self):
+        """[(holder, key, fill)] of each bucket's state (see
+        Optimizer._state_slots): the flat moments update in place, the beta
+        powers are host f32 values."""
+        out = []
+        for b in self.buckets.values():
+            out.extend((b, nm, 0.0) for nm in ("moment1", "moment2"))
+            out.extend((b, nm, 1.0) for nm in ("beta1_pow", "beta2_pow"))
+        return out
+
+    def digest_units(self):
+        """[(name, tensor)] for the guardian's desync digest: one unit a
+        flat bucket tensor, named by the bucket key as in the JAX engine."""
+        out = []
+        for bi, (key, b) in enumerate(sorted(self.buckets.items(), key=lambda kv: repr(kv[0]))):
+            dtype, wdv, lr_scale, _need_clip = key
+            tag = f"flat_bucket:{bi}[{str(dtype).replace('torch.', '')},wd={wdv},lrs={lr_scale}]"
+            out.append((f"{tag}:moment1", b["moment1"]))
+            out.append((f"{tag}:moment2", b["moment2"]))
+        return out
 
     def defuse_all(self):
         for b in list(self.buckets.values()):

@@ -184,9 +184,73 @@ class Optimizer:
     # ---- the step ----
     @torch.no_grad()
     def step(self) -> None:
+        self._record_step(self._step_body)
+
+    def _step_body(self) -> None:
         self._sync_lr()
         self._step_count += 1
         self._step_impl()
+
+    def _record_step(self, body):
+        """Run one step's `body` under the profiler span
+        `Optimizer.step#<class>`, with the step counters and the
+        step-boundary memory probe (paddle_tpu/optimizer/optimizer.py:
+        105-130); with telemetry off, `body` alone."""
+        from .. import telemetry as _tm
+
+        if not _tm.enabled():
+            return body()
+        import time
+
+        from ..profiler import perf_attribution as _pa
+        from ..profiler.utils import RecordEvent, TracerEventType
+
+        cls = type(self).__name__
+        t0 = time.perf_counter()
+        with RecordEvent(f"Optimizer.step#{cls}", TracerEventType.Optimization):
+            out = body()
+        _tm.counter(
+            "paddle_tpu_optimizer_step_total", "optimizer steps", ("optimizer",)
+        ).labels(optimizer=cls).inc()
+        _tm.histogram(
+            "paddle_tpu_optimizer_step_seconds",
+            "host wall time of Optimizer.step", ("optimizer",),
+        ).labels(optimizer=cls).observe(time.perf_counter() - t0)
+        # the allocator's live bytes and peak: a few µs, no tensor walk
+        _pa.sample_watermark(tag="optimizer_step")
+        return out
+
+    # ---- the state the training guardian snapshots ----
+    def _state_slots(self):
+        """[(holder, key, fill)] for every piece of optimizer state a step
+        changes, where `holder[key]` is the live value (a tensor or a host
+        f32/int): the per-param accumulators, the stacked and flat buckets'
+        moments and beta powers, and `_step_count` (a Python int). `fill`
+        is the value state created after a snapshot goes back to (None:
+        it always predates one)."""
+        out = []
+        for name, store in self._accumulators.items():
+            fill = 1.0 if name.endswith("_pow") else 0.0
+            out.extend((store, pid, fill) for pid in store)
+        for st in self._fused_buckets.values():
+            for grp in st["groups"]:
+                out.extend((grp, nm, 0.0) for nm in ("moment1", "moment2"))
+            out.extend((st, nm, 1.0) for nm in ("beta1_pow", "beta2_pow"))
+        if self._flat_engine is not None:
+            out.extend(self._flat_engine.state_slots())
+        out.append((self.__dict__, "_step_count", None))
+        return out
+
+    def _fused_state_entries(self):
+        """[(tensor, fill)] for every bucket state tensor, stacked and flat
+        (paddle_tpu/optimizer/optimizer.py:301-314): what a snapshot covers
+        beside the per-param accumulators. The flat buckets are copies of
+        nothing (the parameters are copied into a flat buffer each step),
+        so a restored parameter is what the next step reads."""
+        bucket_holders = [grp for st in self._fused_buckets.values() for grp in st["groups"]]
+        if self._flat_engine is not None:
+            bucket_holders += list(self._flat_engine.buckets.values())
+        return [(h[nm], 0.0) for h in bucket_holders for nm in ("moment1", "moment2")]
 
     @torch.no_grad()
     def _skip_step(self) -> None:

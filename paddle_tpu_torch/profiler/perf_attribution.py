@@ -1,0 +1,519 @@
+"""Step-level performance attribution: FLOP counts, memory and the live
+tensor census (counterpart of paddle_tpu/profiler/perf_attribution.py).
+
+The JAX package reads XLA's `cost_analysis()` and `memory_analysis()` of
+each compiled program. The port compiles no program, so:
+
+1. **Per-program cost records**: `record_compiled(origin, name, flops=,
+   bytes_accessed=, ...)` keeps one record for each program a caller
+   measured (the static Executor's first run of a signature). FLOPs are
+   counted over a real run with `counting_flops()`: torch's
+   `FlopCounterMode` counts the matmul-class ops it dispatches (mm, bmm,
+   addmm, convolutions, sdpa), and the hand-written kernels, which run
+   through ctypes where no dispatch mode sees them, add their model FLOPs
+   themselves (`ops.launches.count_flops`: B1-B3 as
+   `ops.attention.flash_flops` gives them). Elementwise ops and the fused
+   AdamW add none. "bytes" is what the caller states (a record's
+   `bytes_accessed`), not a measured count: torch exposes no per-program
+   byte counter, so the Executor records None.
+
+2. **Memory**: the device peak comes from `torch.cuda`
+   (`max_memory_allocated`); `live_array_census()` walks the live tensors
+   (a `gc` walk: an explicit query) into count/bytes by dtype and by
+   annotated module; `sample_watermark()` is the cheap step-boundary probe
+   (`torch.cuda.memory_allocated` and `max_memory_allocated`, no walk),
+   called by `Optimizer.step`, by guardian anomalies and in crash dumps.
+
+3. **Roofline**: `roofline(flops, bytes, seconds)` against a peak table
+   holding this card (H100 SXM, dense bf16 989e12 FLOP/s, HBM3 3.35e12
+   B/s, NVIDIA's data sheet) and a CPU fallback.
+
+4. **`perf_report()`**: programs, census, watermark, the serving and
+   compilation sections; `input_pipeline` reads "unavailable" until
+   io.streaming is ported (ROADMAP Queue A item 4).
+
+Collection sites check `telemetry.enabled()`; explicit queries
+(`perf_report`, `live_array_census`) always work.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+import threading
+import time
+import weakref
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .. import telemetry as _tm
+
+_MAX_RECORDS = 256
+
+_lock = threading.Lock()
+_records: list = []
+_serial = [0]
+_watermark: Dict[str, object] = {
+    "peak_hbm_bytes": 0,
+    "peak_at": None,
+    "peak_tag": None,
+    "live_bytes": 0,
+    "live_count": 0,
+    "samples": 0,
+}
+# module annotation registry: name -> [weakref to tensor]
+_module_tensors: Dict[str, list] = {}
+
+
+# ---------------------------------------------------------------------------
+# FLOP counting
+# ---------------------------------------------------------------------------
+
+class FlopCount:
+    """The result of `counting_flops()`: `dispatched` (FlopCounterMode's
+    matmul-class ops), `kernels` (the hand-written kernels' own counts)
+    and `total`."""
+
+    def __init__(self):
+        self.dispatched = 0.0
+        self.kernels = 0.0
+
+    @property
+    def total(self) -> float:
+        return self.dispatched + self.kernels
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """Count the FLOPs of what runs inside the block (see the module
+    docstring). Not reentrant: an inner count raises."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..ops import launches
+
+    if launches.FLOP_TALLY[0] is not None:
+        raise RuntimeError("counting_flops() is already active")
+    res = FlopCount()
+    launches.FLOP_TALLY[0] = 0.0
+    mode = FlopCounterMode(display=False)
+    try:
+        with mode:
+            yield res
+    finally:
+        res.kernels = float(launches.FLOP_TALLY[0])
+        launches.FLOP_TALLY[0] = None
+        res.dispatched = float(mode.get_total_flops())
+
+
+# ---------------------------------------------------------------------------
+# per-program cost/memory records
+# ---------------------------------------------------------------------------
+
+def record_compiled(
+    origin: str,
+    name: str,
+    flops: Optional[float] = None,
+    bytes_accessed: Optional[float] = None,
+    memory: Optional[dict] = None,
+    compile_seconds: Optional[float] = None,
+    extra: Optional[dict] = None,
+) -> Optional[dict]:
+    """Keep one program's cost record: its counted FLOPs, the bytes the
+    caller states, its memory (`{"peak_bytes": ...}`) and the compile wall
+    time. A record with neither FLOPs nor memory is marked
+    ``available: False``. Returns the record, or None when telemetry is
+    disabled. Never raises into the caller."""
+    if not _tm.enabled():
+        return None
+    mem = dict(memory or {})
+    with _lock:
+        _serial[0] += 1
+        serial = _serial[0]
+    rec = {
+        "serial": serial,
+        "origin": str(origin),
+        "name": str(name),
+        "platform": platform_name(),
+        "flops": float(flops or 0.0),
+        "bytes_accessed": float(bytes_accessed) if bytes_accessed is not None else None,
+        "transcendentals": 0.0,
+        "memory": mem,
+        "peak_memory_bytes": int(mem.get("peak_bytes", 0)),
+        "compile_seconds": float(compile_seconds) if compile_seconds is not None else None,
+        "recorded_at": time.time(),
+        "available": bool(flops) or bool(mem),
+    }
+    if extra:
+        rec.update(extra)
+    with _lock:
+        _records.append(rec)
+        del _records[:-_MAX_RECORDS]
+    try:
+        _tm.counter(
+            "paddle_tpu_perf_programs_recorded_total",
+            "compiled programs captured by the attribution layer", ("origin",),
+        ).labels(origin=rec["origin"]).inc()
+        _tm.gauge(
+            "paddle_tpu_program_flops",
+            "FLOPs of the most recently compiled program", ("origin",),
+        ).labels(origin=rec["origin"]).set(rec["flops"])
+        _tm.gauge(
+            "paddle_tpu_program_peak_memory_bytes",
+            "device memory peak of the most recently compiled program", ("origin",),
+        ).labels(origin=rec["origin"]).set(rec["peak_memory_bytes"])
+    except Exception:
+        pass  # a telemetry schema clash must never break a compile path
+    return rec
+
+
+def program_records(origin: Optional[str] = None,
+                    name: Optional[str] = None) -> List[dict]:
+    """Recorded programs in record order (oldest first), optionally
+    filtered by origin and/or name. Returns copies."""
+    with _lock:
+        recs = list(_records)
+    if origin is not None:
+        recs = [r for r in recs if r["origin"] == origin]
+    if name is not None:
+        recs = [r for r in recs if r["name"] == name]
+    return [dict(r) for r in recs]
+
+
+# ---------------------------------------------------------------------------
+# live-memory accounting
+# ---------------------------------------------------------------------------
+
+def annotate_module(name: str, module) -> None:
+    """Tag a Layer (or an iterable of tensors) so the census reports its
+    live bytes under `by_module[name]`. Weak references: annotation never
+    extends a tensor's lifetime."""
+    if isinstance(module, torch.nn.Module):
+        tensors = list(module.state_dict(keep_vars=True).values())
+    else:
+        tensors = list(module)
+    refs = []
+    for t in tensors:
+        try:
+            refs.append(weakref.ref(t))
+        except TypeError:
+            pass
+    with _lock:
+        _module_tensors[str(name)] = refs
+
+
+def _storage_key(t: torch.Tensor):
+    try:
+        st = t.untyped_storage()
+        return (t.device.type, t.device.index, st.data_ptr()), int(st.nbytes())
+    except Exception:
+        return None, 0
+
+
+def _live_totals() -> Tuple[int, int, Dict[str, dict]]:
+    """(count, bytes, by_dtype) over the live tensors that hold storage
+    (not meta), each storage counted once however many views share it."""
+    by_dtype: Dict[str, dict] = {}
+    seen = set()
+    total = count = 0
+    tensor_type = torch.Tensor
+    for obj in gc.get_objects():
+        try:
+            # type(), not isinstance(): the latter reads __class__, which
+            # some tracked objects answer with a deprecation warning
+            if not issubclass(type(obj), tensor_type) or obj.is_meta:
+                continue
+            key, nb = _storage_key(obj)
+        except Exception:
+            continue
+        if key is None or key in seen:
+            continue
+        seen.add(key)
+        dt = str(obj.dtype).replace("torch.", "")
+        total += nb
+        count += 1
+        st = by_dtype.setdefault(dt, {"count": 0, "bytes": 0})
+        st["count"] += 1
+        st["bytes"] += nb
+    return count, total, by_dtype
+
+
+def _module_census() -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    with _lock:
+        items = list(_module_tensors.items())
+    for name, refs in items:
+        live, seen = [], set()
+        cnt = nb = 0
+        for r in refs:
+            t = r()
+            if t is None:
+                continue
+            live.append(r)
+            key, n = _storage_key(t)
+            if key is None or key in seen or t.is_meta:
+                continue
+            seen.add(key)
+            nb += n
+            cnt += 1
+        with _lock:
+            if name in _module_tensors:
+                _module_tensors[name] = live  # prune dead weakrefs
+        if cnt:
+            out[name] = {"count": cnt, "bytes": nb}
+    return out
+
+
+def live_array_census(set_gauges: bool = True) -> dict:
+    """Full census of live tensors: count/bytes by dtype and by annotated
+    module. Explicit query (a walk of every tracked object); works with
+    telemetry disabled, and publishes gauges only when it is enabled."""
+    count, total, by_dtype = _live_totals()
+    by_module = _module_census()
+    census = {"count": count, "bytes": total, "by_dtype": by_dtype, "by_module": by_module}
+    if set_gauges and _tm.enabled():
+        try:
+            _tm.gauge("paddle_tpu_hbm_live_arrays", "live device arrays").set(count)
+            _tm.gauge("paddle_tpu_hbm_live_bytes_total", "live device bytes").set(total)
+            g = _tm.gauge("paddle_tpu_hbm_live_bytes", "live device bytes by dtype", ("dtype",))
+            for dt, st in by_dtype.items():
+                g.labels(dtype=dt).set(st["bytes"])
+            gm = _tm.gauge("paddle_tpu_hbm_module_bytes",
+                           "live device bytes by annotated module", ("module",))
+            for m, st in by_module.items():
+                gm.labels(module=m).set(st["bytes"])
+        except Exception:
+            pass
+    return census
+
+
+def sample_watermark(tag: str = "step", force: bool = False) -> Optional[dict]:
+    """Step-boundary probe: the allocator's live bytes and high-water mark
+    (`torch.cuda.memory_allocated` / `max_memory_allocated`, a few µs, no
+    walk). A process that has not used the card reads 0. No-op when
+    telemetry is disabled; `force` is accepted for the JAX package's
+    callers (this probe needs no throttle). Returns the watermark."""
+    if not _tm.enabled():
+        return None
+    live = peak = 0
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        live = int(torch.cuda.memory_allocated())
+        peak = int(torch.cuda.max_memory_allocated())
+    with _lock:
+        _watermark["live_bytes"] = live
+        _watermark["samples"] = int(_watermark["samples"]) + 1
+        if max(live, peak) > int(_watermark["peak_hbm_bytes"]):
+            _watermark["peak_hbm_bytes"] = max(live, peak)
+            _watermark["peak_at"] = time.time()
+            _watermark["peak_tag"] = str(tag)
+        snap = dict(_watermark)
+    try:
+        _tm.gauge("paddle_tpu_hbm_live_bytes_total", "live device bytes").set(live)
+        _tm.gauge(
+            "paddle_tpu_hbm_watermark_bytes",
+            "high-water mark of live device bytes (sampled at step boundaries and on "
+            "guardian anomalies)",
+        ).set(snap["peak_hbm_bytes"])
+    except Exception:
+        pass
+    return snap
+
+
+def watermark() -> dict:
+    with _lock:
+        return dict(_watermark)
+
+
+# ---------------------------------------------------------------------------
+# roofline
+# ---------------------------------------------------------------------------
+
+# dense peaks (NVIDIA's H100 SXM data sheet: bf16 tensor cores, HBM3) and
+# conservative single-socket host numbers, so CPU runs report a finite
+# utilization instead of failing the lookup
+DEFAULT_PEAK_TABLE = {
+    "nvidia h100": {"flops_per_s": 989e12, "bytes_per_s": 3.35e12},
+    "cpu": {"flops_per_s": 1.0e11, "bytes_per_s": 5.0e10},
+}
+
+
+def platform_name() -> str:
+    """Lowercased device kind ('nvidia h100 80gb hbm3', 'cpu', ...)."""
+    try:
+        if torch.cuda.is_available():
+            return torch.cuda.get_device_name(torch.cuda.current_device()).lower()
+        return "cpu"
+    except Exception:
+        return "unknown"
+
+
+def peak_for(platform: Optional[str] = None,
+             peak_table: Optional[dict] = None) -> Tuple[str, dict]:
+    """(matched platform key, {flops_per_s, bytes_per_s}) with substring
+    matching ('nvidia h100 80gb hbm3' matches 'nvidia h100') and a CPU
+    fallback."""
+    table = peak_table if peak_table is not None else DEFAULT_PEAK_TABLE
+    p = (platform or platform_name()).lower()
+    if p in table:
+        return p, dict(table[p])
+    for k in table:
+        if k != "cpu" and (k in p or p in k):
+            return k, dict(table[k])
+    fb = table.get("cpu", DEFAULT_PEAK_TABLE["cpu"])
+    return "cpu", dict(fb)
+
+
+def roofline(flops, bytes_accessed, seconds, platform: Optional[str] = None,
+             peak_table: Optional[dict] = None) -> dict:
+    """Achieved-vs-peak utilization for one measured region: `mfu` is
+    achieved FLOP/s over peak, `hbm_util` likewise for bytes, `bound` the
+    roofline regime the measurement sits in."""
+    seconds = float(seconds)
+    if seconds <= 0:
+        raise ValueError(f"roofline needs a positive duration, got {seconds}")
+    plat, peak = peak_for(platform, peak_table)
+    achieved_f = float(flops) / seconds
+    achieved_b = float(bytes_accessed) / seconds
+    mfu = achieved_f / peak["flops_per_s"]
+    hbm_util = achieved_b / peak["bytes_per_s"]
+    return {
+        "platform": plat,
+        "seconds": seconds,
+        "flops": float(flops),
+        "bytes": float(bytes_accessed),
+        "achieved_flops_per_s": achieved_f,
+        "achieved_bytes_per_s": achieved_b,
+        "peak_flops_per_s": float(peak["flops_per_s"]),
+        "peak_bytes_per_s": float(peak["bytes_per_s"]),
+        "mfu": mfu,
+        "hbm_util": hbm_util,
+        "bound": "compute" if mfu >= hbm_util else "memory",
+    }
+
+
+# ---------------------------------------------------------------------------
+# reports
+# ---------------------------------------------------------------------------
+
+_REPORT_KEYS = (
+    "version", "generated_at", "platform", "telemetry_enabled",
+    "programs", "live_arrays", "hbm_watermark", "input_pipeline",
+    "serving", "compilation",
+)
+_PROGRAM_KEYS = (
+    "serial", "origin", "name", "platform", "flops", "bytes_accessed",
+    "memory", "peak_memory_bytes", "compile_seconds", "recorded_at",
+    "available",
+)
+
+
+def _input_pipeline_section() -> dict:
+    return {"verdict": "unavailable",
+            "reason": "io.streaming is not ported yet (ROADMAP Queue A item 4)",
+            "attribution_hint": None}
+
+
+def _serving_section() -> dict:
+    try:
+        from ..telemetry import request_trace as _rt
+
+        return _rt.serving_section()
+    except Exception as e:  # the report must render without the serving tier
+        return {"available": False, "reason": f"request_trace failed: {e}"}
+
+
+def _compilation_section() -> dict:
+    try:
+        from .. import compile_cache as _cc
+
+        section = _cc.summary()
+    except Exception as e:  # the report must render without the ledger
+        return {"available": False, "reason": f"compile ledger failed: {e}"}
+    try:
+        st = _cc.active_store()
+        section["store"] = st.stats() if st is not None else None
+    except Exception:
+        section["store"] = None
+    return section
+
+
+def perf_report(origin: Optional[str] = None) -> dict:
+    """The queryable attribution summary (`paddle.profiler.perf_report`):
+    every recorded program, the live-tensor census, the watermark, and the
+    input-pipeline, serving and compilation sections. A plain
+    JSON-serializable dict."""
+    return {
+        "version": 1,
+        "generated_at": time.time(),
+        "platform": platform_name(),
+        "telemetry_enabled": _tm.enabled(),
+        "programs": program_records(origin),
+        "live_arrays": live_array_census(set_gauges=False),
+        "hbm_watermark": watermark(),
+        "input_pipeline": _input_pipeline_section(),
+        "serving": _serving_section(),
+        "compilation": _compilation_section(),
+    }
+
+
+def validate_report(report: dict) -> dict:
+    """Schema check for perf_report() output (the JAX package's checks).
+    Raises ValueError on a malformed report; returns it otherwise."""
+    missing = [k for k in _REPORT_KEYS if k not in report]
+    if missing:
+        raise ValueError(f"perf report missing keys: {missing}")
+    for i, rec in enumerate(report["programs"]):
+        bad = [k for k in _PROGRAM_KEYS if k not in rec]
+        if bad:
+            raise ValueError(f"program record {i} missing keys: {bad}")
+    census = report["live_arrays"]
+    for k in ("count", "bytes", "by_dtype", "by_module"):
+        if k not in census:
+            raise ValueError(f"live_arrays census missing {k!r}")
+    if "peak_hbm_bytes" not in report["hbm_watermark"]:
+        raise ValueError("hbm_watermark missing peak_hbm_bytes")
+    if "verdict" not in report["input_pipeline"]:
+        raise ValueError("input_pipeline missing verdict")
+    if "available" not in report["serving"]:
+        raise ValueError("serving section missing 'available'")
+    if report["serving"].get("available") and report["serving"].get("n_traced"):
+        for k in ("cached_tokens", "spec"):
+            if k not in report["serving"]:
+                raise ValueError(f"serving section missing {k!r}")
+    comp = report["compilation"]
+    if "available" not in comp:
+        raise ValueError("compilation section missing 'available'")
+    if comp.get("available"):
+        for k in ("hits", "misses", "hit_rate", "total_compile_seconds", "by_origin"):
+            if k not in comp:
+                raise ValueError(f"compilation section missing {k!r}")
+    return report
+
+
+def snapshot_for_crash(max_programs: int = 8) -> dict:
+    """Compact attribution snapshot for flight-recorder crash dumps: the
+    watermark plus the newest programs' headline numbers."""
+    recs = program_records()[-max_programs:]
+    return {
+        "platform": platform_name(),
+        "hbm_watermark": watermark(),
+        "programs": [
+            {
+                "origin": r["origin"],
+                "name": r["name"],
+                "flops": r["flops"],
+                "bytes_accessed": r["bytes_accessed"],
+                "peak_memory_bytes": r["peak_memory_bytes"],
+                "compile_seconds": r["compile_seconds"],
+            }
+            for r in recs
+        ],
+    }
+
+
+def reset() -> None:
+    """Clear records, watermark, and module annotations (tests)."""
+    with _lock:
+        _records.clear()
+        _module_tensors.clear()
+        _watermark.update(peak_hbm_bytes=0, peak_at=None, peak_tag=None,
+                          live_bytes=0, live_count=0, samples=0)

@@ -13,17 +13,21 @@ bookkeeping of its replay, not a compiled executable. Gradients
 one pass per request; optimizer updates run after them and write the
 parameters (the model's own tensors) and accumulators back in place.
 
-The JAX Executor's other hooks wait for their modules (ROADMAP Queue A
-item 3): FLAGS_check_nan_inf (framework/guardian) and a persistent
-compile cache (PADDLE_TPU_COMPILE_CACHE_DIR, compile_cache) raise
-NotImplementedError here; both are off by default. An eager replay has
-no compiled executable, so there is no XLA cost record to hand to
-profiler.perf_attribution; the compile-miss time is counted in
-`paddle_tpu_executor_compile_seconds`.
+The compile ledger sees a signature's first run (verify + the pass
+pipeline) as a `miss` of origin `static_executor` with its seconds, and
+that run's FLOPs, counted over the replay (profiler.perf_attribution
+`counting_flops`: torch's matmul-class ops and the flash kernels' own
+counts), as a `record_compiled`; later runs are `hit`s. A cache entry is a
+rewritten clone of closures, nothing a process could restore, so the
+Executor persists nothing and records no `restore` or `persist` even with
+PADDLE_TPU_COMPILE_CACHE_DIR set (the store holds the kernel libraries,
+ops/kernels/build.py). With FLAGS_check_nan_inf on, the state a run writes
+back (the updated parameters and the optimizer accumulators) goes through
+the training guardian's check (framework/guardian.check_compiled_state),
+which raises GuardianAnomaly naming `static_executor`.
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import Dict, Optional, Sequence
 
@@ -34,8 +38,6 @@ from ..framework.io import numpy_to_tensor, tensor_to_numpy
 from .program import Program, default_main_program
 
 Tensor = torch.Tensor
-
-_ROADMAP = "ROADMAP Queue A item 3"
 
 
 class _OptUpdate:
@@ -123,19 +125,6 @@ def append_backward(loss: Tensor, parameter_list=None, no_grad_set=None):
     prog.grad_requests.append((loss_var, param_vars, grad_vars))
     prog._compiled.clear()
     return pairs
-
-
-def _check_unported_hooks():
-    from ..framework import flags as _flags
-
-    if _flags._registry.get("FLAGS_check_nan_inf", False):
-        raise NotImplementedError(
-            "FLAGS_check_nan_inf: the training guardian's check of the state a static run "
-            f"writes back (framework/guardian) is not ported yet ({_ROADMAP})")
-    if os.environ.get("PADDLE_TPU_COMPILE_CACHE_DIR"):
-        raise NotImplementedError(
-            "PADDLE_TPU_COMPILE_CACHE_DIR: the persistent compile cache (compile_cache) is "
-            f"not ported yet ({_ROADMAP})")
 
 
 class _Compiled:
@@ -265,12 +254,11 @@ class Executor:
             return program._run(feed or {}, return_numpy)
         if isinstance(program, CompiledProgram):
             program = program._program
-        _check_unported_hooks()
         program = program if program is not None else default_main_program()
         feed = feed or {}
         fetch_list = list(fetch_list or [])
         fetch_vars = [program.resolve_fetch(f) for f in fetch_list]
-        compiled = self._compile(program, tuple(sorted(feed)), tuple(fetch_vars))
+        compiled, miss_s = self._compile(program, tuple(sorted(feed)), tuple(fetch_vars))
 
         feed_arrays = []
         for n in sorted(feed):
@@ -287,12 +275,68 @@ class Executor:
         # the replay records nothing, even when run under a program_guard
         prev = state.set_program_capture(None)
         try:
-            fetches = compiled(feed_arrays, param_arrays, accum_arrays, lr_values)
+            args = (feed_arrays, param_arrays, accum_arrays, lr_values)
+            if miss_s is None:
+                from .. import compile_cache as _cc
+
+                _cc.record("static_executor", "replay", "hit")
+                fetches = compiled(*args)
+            else:
+                fetches = self._first_run(program, compiled, args, miss_s)
+            from ..framework import flags as _flags
+
+            if _flags._registry.get("FLAGS_check_nan_inf", False):
+                self._check_written_state(program, param_arrays, accum_arrays)
         finally:
             state.set_program_capture(prev)
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches
+
+    @staticmethod
+    def _first_run(program, compiled, args, miss_s):
+        """A signature's first run: the ledger's `miss` (the compile's
+        verify + passes, `miss_s` seconds), then the run under a FLOP count
+        whose total goes to perf_attribution as the program's record."""
+        from .. import compile_cache as _cc
+        from .. import telemetry as _tm
+
+        feed_arrays = args[0]
+        name = f"replay[{len(compiled.work.ops)}ops,{len(feed_arrays)}feeds]"
+        if not _tm.enabled():
+            return compiled(*args)
+        fp = _cc.fingerprint_text(
+            f"executor-replay-v1|{program.to_text()}|{_cc.aval_signature(list(feed_arrays))}")
+        _cc.record("static_executor", name, "miss", seconds=miss_s, fingerprint=fp,
+                   signature=f"{len(feed_arrays)}feeds")
+        from ..profiler import perf_attribution as _pa
+
+        with _pa.counting_flops() as count:
+            fetches = compiled(*args)
+        dev = next((t.device for t in args[1] if isinstance(t, Tensor)), None)
+        mem = ({"peak_bytes": int(torch.cuda.max_memory_allocated(dev))}
+               if dev is not None and dev.type == "cuda" else {})
+        _pa.record_compiled("static_executor", name, flops=count.total, memory=mem,
+                            compile_seconds=miss_s,
+                            extra={"program_id": id(program),
+                                   "flops_dispatched": count.dispatched,
+                                   "flops_kernels": count.kernels})
+        return fetches
+
+    @staticmethod
+    def _check_written_state(program, param_arrays, accum_arrays):
+        """FLAGS_check_nan_inf: the guardian's check of what the run wrote
+        back, the updated parameters and every optimizer accumulator."""
+        from ..framework import guardian as _guardian
+
+        pos = {v: i for i, v in enumerate(program.param_vars)}
+        touched = []
+        for upd in program.opt_updates:
+            pvs = upd.param_var if isinstance(upd.param_var, tuple) else (upd.param_var,)
+            touched.extend(param_arrays[pos[pv]] for pv in pvs)
+        for accs in accum_arrays:
+            touched.extend(accs)
+        _guardian.check_compiled_state(touched, origin="static_executor")
 
     # ---- compilation ----
     @staticmethod
@@ -327,7 +371,7 @@ class Executor:
                 "static Executor compiled-program cache lookups", ("result",),
             ).labels(result="hit" if hit is not None else "miss").inc()
         if hit is not None:
-            return hit
+            return hit, None
         t0 = time.perf_counter()
         # evict entries for the same (feed, fetch, passes-mode) signature
         # whose program structure went stale — they can never hit again
@@ -360,14 +404,15 @@ class Executor:
                 program, fetch_vars=fetch_vars, feed_names=feed_names
             )
         compiled = _Compiled(work, feed_names, fetch_vars)
+        miss_s = time.perf_counter() - t0
         if telemetry_on:
             _tm.histogram(
                 "paddle_tpu_executor_compile_seconds",
                 "wall time of a static Executor compile miss (verify, pass "
                 "pipeline, replay bookkeeping)",
-            ).observe(time.perf_counter() - t0)
+            ).observe(miss_s)
         program._compiled[key] = compiled
-        return compiled
+        return compiled, miss_s
 
     @staticmethod
     def _apply_fused_update(upd, accs, lr, grads, param_arrays, pos_of_param):

@@ -8,8 +8,9 @@ event when off). Exporters render Prometheus text and JSON-lines
 snapshots; metric names stay `paddle_tpu_*`, so a snapshot of the port
 compares byte for byte with the JAX package's. `request_trace` keeps
 sampled request-scoped phase spans (`FLAGS_request_trace`), `timeline` the
-incident ring (`FLAGS_incident_timeline`). The static executor, io,
-compile-cache and collective hooks arrive with their modules.
+incident ring (`FLAGS_incident_timeline`). The compile ledger
+(compile_cache/ledger.py) and the guardian publish here too; the io and
+collective hooks arrive with their modules.
 """
 from .metrics import (  # noqa: F401
     Counter,

@@ -248,7 +248,8 @@ def start_metrics_server(port: int = 0, host: str = "127.0.0.1",
                           the ring size) as `{"dropped", "clock_sync",
                           "events"}` — the live-debug view of the unified
                           incident timeline; `[]` events when the flag is off
-    (The compile-ledger route arrives with the compile cache.)
+    GET /compile_cache.json -> compile-ledger events + summary (the
+                          dump_json doc shape, re-rendered per request)
 
     `port=0` binds an ephemeral port (read it back from the handle). The
     registry is re-rendered per request: a scraper always sees live values.
@@ -285,9 +286,20 @@ def start_metrics_server(port: int = 0, host: str = "127.0.0.1",
                 }
                 body = (_json.dumps(doc, sort_keys=True) + "\n").encode()
                 ctype = "application/json"
+            elif path == "/compile_cache.json":
+                from ..compile_cache import ledger as _ledger
+
+                doc = {
+                    "events": _ledger.events(),
+                    "marks": _ledger.marks(),
+                    "spans": _ledger.spans(),
+                    "summary": _ledger.summary(),
+                }
+                body = (_json.dumps(doc, sort_keys=True, default=str) + "\n").encode()
+                ctype = "application/json"
             else:
                 self.send_error(
-                    404, "try /metrics, /metrics.json or /timeline.json")
+                    404, "try /metrics, /metrics.json, /timeline.json or /compile_cache.json")
                 return
             self.send_response(200)
             self.send_header("Content-Type", ctype)

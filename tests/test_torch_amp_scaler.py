@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import jax.numpy as jnp
 
 import paddle_tpu as paddle

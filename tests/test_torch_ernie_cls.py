@@ -7,6 +7,8 @@ same weights and batches."""
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 from paddle_tpu.models import ernie as jernie
 

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 from paddle_tpu_torch.ops import attention as ta
 from paddle_tpu_torch.ops.kernels import build
 

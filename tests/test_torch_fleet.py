@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 from paddle_tpu import inference as jinf
 from paddle_tpu.distributed.resilience import fault_injection as jfi

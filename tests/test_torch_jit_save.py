@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 from paddle_tpu.static import InputSpec as JSpec
 

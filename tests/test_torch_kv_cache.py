@@ -5,6 +5,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import jax.numpy as jnp
 
 from paddle_tpu.inference import kv_cache as jkv

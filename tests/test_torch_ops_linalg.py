@@ -4,6 +4,8 @@ against the JAX package on the same numpy inputs, f32 and (bf16 rows)
 bfloat16, with gradients for the float rows."""
 import pytest
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu_torch as ptt
 
 from torch_op_parity import check_row

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core.tensor import LATER_SLICE

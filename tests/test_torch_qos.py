@@ -9,6 +9,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 from paddle_tpu.inference import engine as jeng
 from paddle_tpu.inference import fleet as jfl

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl

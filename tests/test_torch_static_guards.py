@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.ops import fused_optimizer as fo

@@ -14,6 +14,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 from paddle_tpu.distributed.resilience import fault_injection as jfi
 from paddle_tpu.distributed.resilience import retry as jretry

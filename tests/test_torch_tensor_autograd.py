@@ -5,6 +5,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
+
 import paddle_tpu as paddle
 import paddle_tpu_torch as ptt
 from paddle_tpu.core import autograd_engine as jengine
