@@ -13,7 +13,9 @@ Phases, one line each (any failure raises and exits non-zero):
                  8 prompts of 16-1024 tokens through the continuous-batching
                  scheduler, 32 new tokens each; launch counts; per-step logits
                  of one request against a no-cache full-forward recompute
-  serve_int8     the same engine with an int8 KV pool: two runs, equal ids
+  serve_int8     the same engine with an int8 KV pool: two runs over 3 of
+                 the 8 prompts (1024, 16 and 209 tokens), 32 new tokens each,
+                 equal ids
   telemetry_ab   the host cost of telemetry, request traces and the incident
                  timeline on serve_bf16's path, off and on in turns (A B B A):
                  the decode profile's host step and the scheduler's step
@@ -24,7 +26,7 @@ Phases, one line each (any failure raises and exits non-zero):
                  evacuations, migrations and greedy ids equal
   fleet_bf16     bench.py's _build_fleet traffic on serve_bf16's 32-layer model
                  (engines: max_seq 512, block 16, batch 4): 32 Poisson requests
-                 replayed on fleets of 1, 2 and 4 replicas, the widest taking a
+                 replayed on fleets of 1 and 4 replicas, the widest taking a
                  hot swap to a copy of the weights at 30% and a replica kill at
                  60%; then the shared-prefix burst on 2 replicas, untiered
                  against 1 prefill + 1 int8 decode replica, and the tiered run
@@ -233,6 +235,31 @@ Phases, one line each (any failure raises and exits non-zero):
                  equal ids, restored libraries byte-equal to the built ones,
                  each run's `compile_cache report` components summing to its
                  engine-load -> first-token wall within 5%
+  vision_parity  MobileNetV1 (x0.25), V2 (x0.35) and V3-Small (x0.5), each
+                 built once from seed 5, one train-mode forward and backward
+                 at B4 3x96x96 in f32 on the card and on the CPU (the card's
+                 relu/relu6/hardswish/hardsigmoid decisions given to the CPU)
+                 and on the CPU in f64: logits, loss and every grad within
+                 resnet_parity's limits or twice the CPU run's own f32 noise
+  input_stream   bench.py's _build_input_stream as written with the port as
+                 paddle (4096 samples, B64, 1024 features, MLP 2048, reader
+                 work 100,000, 24 steps, seed 7): StreamingLoader prefetch 2
+                 (donated) against 0, ms a step, waits, explained fraction,
+                 overlap efficiency, verdict, final losses equal; a mid-epoch
+                 state_dict restored byte-equal to an unbroken run, every
+                 streamed batch byte-equal to its host batch, the donation
+                 bound on torch.cuda.memory_allocated
+  mobilenetv3_fit PaddleClas's MobileNetV3-Large x1.0 (1000 classes, seed 0)
+                 through hapi: Model.prepare(Momentum 0.9 under LinearWarmup
+                 over CosineAnnealingDecay, L2Decay, CrossEntropyLoss,
+                 Accuracy top-1/5, amp O1).fit for 2 epochs on the DataLoader
+                 (1280 synthetic 256x256 images, B64, RandomResizedCrop 224,
+                 flip, Normalize, Transpose in 7 spawned persistent workers),
+                 evaluate, predict; ms a step, images/s, input wait (mean,
+                 p99, share), perf_report's input_pipeline verdict, the
+                 device step from memory, idle share, peak, paddle.flops and
+                 MFU; Model.save(training=False) + jit.load against the live
+                 model; losses finite and falling, no worker initialised CUDA
   (static_ernie_train also runs its 5 steps again with FLAGS_check_nan_inf
   and a compile-cache directory set: losses bit-equal, one ledger miss then
   hits, and a NaN loss scale fed makes the Executor raise GuardianAnomaly
@@ -391,10 +418,24 @@ def ptxas_summary(nvcc_log: str) -> list:
 _T0 = time.perf_counter()
 
 
+_LOGGED = []  # (phase, elapsed_s) of every line: the closing phase_seconds line
+
+
 def log(phase: str, **fields) -> None:
     """One line a phase; `elapsed_s` is the script's wall time at the line."""
     fields["elapsed_s"] = round(time.perf_counter() - _T0, 1)
+    _LOGGED.append((phase.split(" ")[0], fields["elapsed_s"]))
     print(f"{phase}: " + json.dumps(fields, default=float), flush=True)
+
+
+def phase_seconds() -> dict:
+    """Seconds between each phase's lines and the previous phase's, by phase
+    (the kernel checks' lines count under `kernel`)."""
+    out, prev = {}, 0.0
+    for name, t in _LOGGED:
+        out[name] = round(out.get(name, 0.0) + t - prev, 1)
+        prev = t
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -797,11 +838,19 @@ def serve_bf16(ptt, ta, state):
     return model
 
 
+# the int8 runs serve 3 of serve_bf16's 8 prompts (cut for the script's time
+# limit): the 1024-token one (the bucketed prefill), the 16- and the
+# 209-token ones (streamed in); the other prompts only lengthen the streaming
+# (~850 host-bound steps a run against ~240). Each run is held as before:
+# equal ids, paged launches, agreement with serve_bf16's ids
+SERVE_INT8_PROMPTS = (0, 1, 7)
+
+
 def serve_int8(ta, model, state):
     from paddle_tpu_torch.inference import InferenceEngine
 
     engine = InferenceEngine(model, max_seq_len=2048, block_size=16, max_batch=8, kv_dtype="int8")
-    prompts = serve_prompts()
+    prompts = [serve_prompts()[i] for i in SERVE_INT8_PROMPTS]
     ta.reset_launch_counts()
     t0 = time.perf_counter()
     first = engine.generate(prompts, max_new_tokens=32)
@@ -813,8 +862,10 @@ def serve_int8(ta, model, state):
         raise AssertionError("int8 KV serving is not deterministic across two runs")
     if paged <= 0:
         raise AssertionError("int8 serving launched no paged kernel")
-    same = np.mean([a == b for x, y in zip(first, state["bf16_ids"]) for a, b in zip(x, y)])
-    log("serve_int8", identical_runs=True, wall_s=wall, paged_launches=paged,
+    bf16 = [state["bf16_ids"][i] for i in SERVE_INT8_PROMPTS]
+    same = np.mean([a == b for x, y in zip(first, bf16) for a, b in zip(x, y)])
+    log("serve_int8", prompt_lens=[len(p) for p in prompts], identical_runs=True, wall_s=wall,
+        paged_launches=paged,
         pool_gb=engine.pool.pool_bytes() / 1e9, token_agreement_with_bf16=float(same))
 
 
@@ -1225,7 +1276,7 @@ def fleet_parity(ptt, ta, state, card="cuda"):
         decisions_and_ids_equal=True, launches=launches, steps=steps, scenarios=summary)
 
 
-def fleet_bf16(ptt, ta, model, state, widths=(1, 2, 4)):
+def fleet_bf16(ptt, ta, model, state, widths=(1, 4)):
     """bench.py's _build_fleet at Llama-3-8B width on the card (see the
     module docstring)."""
     from paddle_tpu_torch.distributed.resilience import fault_injection as fi
@@ -3022,40 +3073,98 @@ RESNET_BATCH = 64  # bench.py:1978 (BENCH_RESNET_BATCH's default)
 DECISION_TIE = 1e-4
 
 
-def kink_decisions(model, decisions, force):
-    """Forward hooks on every ReLU and MaxPool2D of `model`: record each
-    call's decision (ReLU: input > 0; max pool: each window's argmax) into
-    `decisions`, or (force) apply the recorded ones in order. -> (the
-    hooks, a dict of the forced run's disagreements: their count and the
-    largest gap over the input's rms: |input| at a ReLU, the difference of
-    the two choices at a pool)."""
-    from paddle_tpu_torch import nn
+def _kinks():
+    """nn.functional's name -> (the regions of an input: ReLU x > 0, ReLU6
+    and the hard activations which of their three pieces, a max pool each
+    window's argmax; the function's value in given regions; each output
+    element's distance to the other side of its decision), each taking the
+    call's arguments by name."""
+    hs = lambda x, slope, offset: x * slope + offset
+    pick = lambda x, idx: x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+    zero, full = torch.zeros_like, torch.full_like
+    pieces = lambda x, lo, hi: (x > lo).to(torch.int8) + (x > hi).to(torch.int8)
 
+    def argmax(x, kernel_size, stride, padding, ceil_mode, **_):
+        return torch.nn.functional.max_pool2d(x, kernel_size, stride or kernel_size, padding,
+                                              ceil_mode=ceil_mode, return_indices=True)[1]
+
+    return {
+        "relu": (lambda x: (x > 0).to(torch.int8),
+                 lambda x, r: torch.where(r == 0, zero(x), x),
+                 lambda x, r, m: x.abs()),
+        "relu6": (lambda x: pieces(x, 0, 6),
+                  lambda x, r: torch.where(r == 0, zero(x), torch.where(r == 1, x, full(x, 6.0))),
+                  lambda x, r, m: torch.minimum(x.abs(), (x - 6).abs())),
+        "hardswish": (lambda x: pieces(x, -3, 3),
+                      lambda x, r: torch.where(r == 0, zero(x), torch.where(
+                          r == 1, x * (x + 3.0) / 6.0, x)),
+                      lambda x, r, m: torch.minimum((x + 3).abs(), (x - 3).abs())),
+        "hardsigmoid": (lambda x, **a: pieces(hs(x, **a), 0, 1),
+                        lambda x, r, **a: torch.where(r == 0, zero(x), torch.where(
+                            r == 1, hs(x, **a), full(x, 1.0))),
+                        lambda x, r, m, **a: torch.minimum(
+                            hs(x, **a).abs(), (hs(x, **a) - 1).abs()) / a["slope"]),
+        "max_pool2d": (argmax,
+                       lambda x, r, **a: pick(x, r),
+                       lambda x, r, m, **a: (pick(x, r) - pick(x, m)).abs()),
+    }
+
+
+@contextlib.contextmanager
+def kink_decisions(ptt, decisions, force):
+    """Wrap nn.functional's relu, relu6, hardswish, hardsigmoid and
+    max_pool2d (the layers and the models' functional calls look them up
+    there at call time): record each call's decisions (_kinks) into
+    `decisions`, or (force) take the recorded ones, in call order. Yields
+    the calls and the forced run's disagreements: their count and the
+    largest distance to the other side over the input's rms."""
+    import inspect
+
+    F = ptt.nn.functional
+    kinds = _kinks()
+    originals = {k: getattr(F, k) for k in kinds}
     calls = iter(decisions)
-    seen = dict(disagree=0, worst_over_rms=0.0)
-    pick = lambda t, idx: t.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+    seen = dict(calls=0, disagree=0, worst_over_rms=0.0)
 
-    def hook(mod, inp, out):
-        x = inp[0].detach()
-        relu = isinstance(mod, nn.ReLU)
-        mine = x > 0 if relu else torch.nn.functional.max_pool2d(
-            x, mod.kernel_size, mod.stride or mod.kernel_size, mod.padding,
-            ceil_mode=mod.kwargs.get("ceil_mode", False), return_indices=True)[1]
-        if not force:
-            decisions.append(mine.cpu())
-            return None
-        theirs = next(calls).to(x.device)
-        diff = theirs != mine
-        if bool(diff.any()):
+    def wrap(name):
+        regions, value, gap = kinds[name]
+        orig = originals[name]
+        sig = inspect.signature(orig)
+
+        def fn(*args, **kw):
+            y = orig(*args, **kw)
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            a = dict(a.arguments)
+            x, _ = a.pop("x"), a.pop("name", None)
+            if name == "max_pool2d" and (a.pop("return_mask") or a.pop("data_format") != "NCHW"
+                                         or isinstance(a["padding"], str)):
+                return y
+            xd = x.detach()
+            mine = regions(xd, **a)
+            seen["calls"] += 1
+            if not force:
+                decisions.append(mine.cpu())
+                return y
+            theirs = next(calls).to(x.device)
+            diff = theirs != mine
+            if not bool(diff.any()):
+                return y
             seen["disagree"] += int(diff.sum())
-            gap = x.abs() if relu else (pick(x, theirs) - pick(x, mine)).abs()
-            worst = (gap[diff].max() / x.float().pow(2).mean().sqrt()).item()
-            seen["worst_over_rms"] = max(seen["worst_over_rms"], worst)
-        return inp[0] * theirs.to(inp[0].dtype) if relu else pick(inp[0], theirs)
+            rms = xd.double().pow(2).mean().sqrt()
+            seen["worst_over_rms"] = max(seen["worst_over_rms"],
+                                         (gap(xd, theirs, mine, **a)[diff].max() / rms).item())
+            return torch.where(diff, value(x, theirs, **a).to(y.dtype), y)
 
-    hooks = [mod.register_forward_hook(hook) for mod in model.modules()
-             if isinstance(mod, (nn.ReLU, nn.MaxPool2D))]
-    return hooks, seen
+        return fn
+
+    for k in kinds:
+        setattr(F, k, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, f in originals.items():
+            setattr(F, k, f)
 
 
 def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels, masks=None, force=False):
@@ -3070,7 +3179,6 @@ def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels, masks=None, force=
     model = resnet18(num_classes=10)
     model.load_state_dict(ref_state)
     model.to(dev)
-    hooks, seen = kink_decisions(model, masks, force) if masks is not None else ([], None)
     sched = ptt.optimizer.lr.PiecewiseDecay([1], [0.01, 0.005])
     opt = ptt.optimizer.Momentum(sched, momentum=0.9, parameters=model.parameters(),
                                  weight_decay=ptt.regularizer.L2Decay(1e-4))
@@ -3089,12 +3197,12 @@ def resnet_parity_run(ptt, ref_state, dev, amp, imgs, labels, masks=None, force=
     state = lambda: {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
     before = state()
     x, y = imgs.to(dev), labels.to(dev)
-    loss1, grads = step(x, y, keep_grads=True)
-    sched.step()
-    loss2, _ = step(x, y)
-    sched.step()
-    for h in hooks:
-        h.remove()
+    kinks = kink_decisions(ptt, masks, force) if masks is not None else contextlib.nullcontext()
+    with kinks as seen:
+        loss1, grads = step(x, y, keep_grads=True)
+        sched.step()
+        loss2, _ = step(x, y)
+        sched.step()
     return dict(losses=[loss1.item(), loss2.item()], grads=grads, before=before, after=state(),
                 decisions=seen)
 
@@ -3410,8 +3518,8 @@ def ocr_parity_run(ptt, det_state, rec_state, dev, data, masks, force):
     batch's statistics), then the eval prob map of a second pair of pages;
     CRNN's logits, CTC loss and grads; the CTC gradient of the logits from
     the port's ctc_loss and from torch's. The ReLU and max-pool decisions
-    are recorded into `masks` ({"det": [], "rec": []}) or (force) taken
-    from it, as resnet_parity's f32 runs take them."""
+    are recorded into `masks` or (force) taken from it, as resnet_parity's
+    f32 runs take them."""
     from paddle_tpu_torch.models import ocr
 
     F = ptt.nn.functional
@@ -3419,37 +3527,34 @@ def ocr_parity_run(ptt, det_state, rec_state, dev, data, masks, force):
     det.load_state_dict(det_state)
     rec.load_state_dict(rec_state)
     det.to(dev), rec.to(dev)
-    hooks, seen = zip(*(kink_decisions(m, masks[k], force) for k, m in (("det", det),
-                                                                         ("rec", rec))))
-    for m in det.modules():
-        if isinstance(m, ptt.nn.BatchNorm2D):
-            m._momentum = 0.0
-    d = {k: v.to(dev) for k, v in data.items()}
-    maps = det(d["page"])
-    loss = ocr.db_loss(maps, d["gt_prob"], d["gt_thresh"], prob_mask=d["mask"], thresh_mask=d["mask"])
-    loss.backward()
-    det.eval()
-    with torch.no_grad():
-        prob = det(d["page2"])
-    logits = rec(d["crops"])
-    lengths = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int64, device=dev)
-    ctc = F.ctc_loss(F.log_softmax(logits.transpose(0, 1), axis=-1), d["labels"], lengths,
-                     d["label_lengths"])
-    ctc.backward()
-    x = logits.detach().transpose(0, 1).contiguous()
-    ctc_grads = []
-    for fn in (F.ctc_loss, torch.nn.functional.ctc_loss):
-        leaf = x.clone().requires_grad_(True)
-        inp = leaf if fn is F.ctc_loss else torch.log_softmax(leaf, -1)
-        fn(inp, d["labels"], lengths, d["label_lengths"]).backward()
-        ctc_grads.append(leaf.grad.cpu())
-    for h in sum(hooks, []):
-        h.remove()
+    with kink_decisions(ptt, masks, force) as seen:
+        for m in det.modules():
+            if isinstance(m, ptt.nn.BatchNorm2D):
+                m._momentum = 0.0
+        d = {k: v.to(dev) for k, v in data.items()}
+        maps = det(d["page"])
+        loss = ocr.db_loss(maps, d["gt_prob"], d["gt_thresh"], prob_mask=d["mask"],
+                           thresh_mask=d["mask"])
+        loss.backward()
+        det.eval()
+        with torch.no_grad():
+            prob = det(d["page2"])
+        logits = rec(d["crops"])
+        lengths = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int64, device=dev)
+        ctc = F.ctc_loss(F.log_softmax(logits.transpose(0, 1), axis=-1), d["labels"], lengths,
+                         d["label_lengths"])
+        ctc.backward()
+        x = logits.detach().transpose(0, 1).contiguous()
+        ctc_grads = []
+        for fn in (F.ctc_loss, torch.nn.functional.ctc_loss):
+            leaf = x.clone().requires_grad_(True)
+            inp = leaf if fn is F.ctc_loss else torch.log_softmax(leaf, -1)
+            fn(inp, d["labels"], lengths, d["label_lengths"]).backward()
+            ctc_grads.append(leaf.grad.cpu())
     return dict(maps=maps.detach().cpu(), loss=loss.item(), det_grads=grads_of(det),
                 prob=prob.cpu(), logits=logits.detach().cpu(), ctc=ctc.item(),
                 rec_grads=grads_of(rec), ctc_grads=ctc_grads,
-                decisions=dict(disagree=sum(r["disagree"] for r in seen),
-                          worst_over_rms=max(r["worst_over_rms"] for r in seen)))
+                decisions=seen)
 
 
 def ocr_parity(ptt):
@@ -3474,7 +3579,7 @@ def ocr_parity(ptt):
         crops=rng.rand(PARITY_CROPS, 3, 32, 100).astype(np.float32),
         labels=rng.randint(1, 11, (PARITY_CROPS, 5)).astype(np.int64),
         label_lengths=np.array([5, 3, 4, 1][:PARITY_CROPS], np.int64)).items()}
-    masks = {"det": [], "rec": []}
+    masks = []
     card = ocr_parity_run(ptt, det_state, rec_state, "cuda", data, masks, False)
     cpu = ocr_parity_run(ptt, det_state, rec_state, "cpu", data, masks, True)
     if not cpu["decisions"]["worst_over_rms"] <= DECISION_TIE:
@@ -3507,7 +3612,7 @@ def ocr_parity(ptt):
         dists={k: v for k, (v, _) in dists.items()}, worst_det_grad=worst_det,
         worst_rec_grad=worst_rec, losses_card=[card["loss"], card["ctc"]],
         losses_cpu=[cpu["loss"], cpu["ctc"]], boxes=[len(b) for b in on_host],
-        decision_calls={k: len(v) for k, v in masks.items()}, decisions_disagree=cpu["decisions"]["disagree"],
+        decision_calls=len(masks), decisions_disagree=cpu["decisions"]["disagree"],
         decisions_disagree_worst_over_rms=cpu["decisions"]["worst_over_rms"],
         tol=dict(OCR_TOL, decision_tie=DECISION_TIE))
 
@@ -6162,6 +6267,607 @@ def cold_start(ptt, ta, state):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Input, vision and hapi (io/, io/streaming/, vision/{transforms,datasets},
+# vision/models/mobilenet*, hapi/): PaddleClas's MobileNetV3-Large trained
+# through hapi.Model.fit on the DataLoader, bench.py's streaming-input
+# config, and the MobileNets card against CPU. No hand-written kernel lies
+# on these paths: the convs are cuDNN's, as ResNet-50's are.
+# ---------------------------------------------------------------------------
+
+MBV3_TRAIN, MBV3_EVAL, MBV3_HW, MBV3_CROP = 1280, 256, 256, 224
+MBV3_BATCH, MBV3_EPOCHS, MBV3_CLASSES = 64, 2, 1000
+# ImageNet's channel means and stds on 0-255, PaddleClas's NormalizeImage
+IMAGENET_MEAN, IMAGENET_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+# the optimizer family of PaddleClas's MobileNetV3_large_x1_0.yaml (Momentum
+# 0.9, cosine decay after a linear warm-up, L2Decay), at this run's batch
+# and length: lr 0.1, warm-up 5 steps, cosine over the 40 steps, L2 4e-5
+MBV3_LR, MBV3_WARMUP, MBV3_L2 = 0.1, 5, 4e-5
+MBV3_NOISE = 24  # each pixel: its class's colour plus uniform noise in [-24, 24]
+
+
+class ColourClassImages:
+    """Seeded synthetic ImageNet-shaped data: `n` uint8 HWC images of
+    MBV3_HW x MBV3_HW x 3 whose class (of MBV3_CLASSES) sets the mean
+    colour (a seeded colour a class) under seeded noise, written once to
+    `path` (.npy) and read back through a memory map, so a spawned
+    DataLoader worker unpickles a path, not the images. A sample is the
+    transformed image and its label as int64 [1]. A worker process that
+    finds CUDA initialised raises: workers must stay host-only."""
+
+    def __init__(self, path, n, seed, transform=None):
+        rng = np.random.RandomState(seed)
+        colours = np.random.RandomState(1234).randint(40, 216, (MBV3_CLASSES, 3)).astype(np.int16)
+        self.labels = rng.randint(0, MBV3_CLASSES, n).astype(np.int64)
+        if not os.path.exists(path):
+            imgs = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8,
+                                             shape=(n, MBV3_HW, MBV3_HW, 3))
+            for i in range(n):
+                noise = rng.randint(-MBV3_NOISE, MBV3_NOISE + 1, (MBV3_HW, MBV3_HW, 3),
+                                    dtype=np.int16)
+                imgs[i] = np.clip(colours[self.labels[i]] + noise, 0, 255)
+            imgs.flush()
+            del imgs
+        self.path, self.transform, self._images = path, transform, None
+
+    def __getstate__(self):
+        return dict(self.__dict__, _images=None)
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        import multiprocessing
+
+        if multiprocessing.current_process().name != "MainProcess" and torch.cuda.is_initialized():
+            raise RuntimeError("a DataLoader worker initialised CUDA")
+        if self._images is None:
+            self._images = np.load(self.path, mmap_mode="r")
+        img = np.asarray(self._images[i])
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, np.asarray([self.labels[i]], np.int64)
+
+
+def report_worker(out_dir, worker_id):
+    """worker_init_fn: each worker's pid and torch.cuda.is_initialized()."""
+    with open(os.path.join(out_dir, f"worker{worker_id}.json"), "w") as f:
+        json.dump({"pid": os.getpid(), "cuda_initialized": torch.cuda.is_initialized()}, f)
+
+
+class ReaderTimed:
+    """`loader` with each batch's arrival timed by profiler.benchmark()'s
+    reader hooks (which feed io.streaming's wait statistics, the
+    `paddle_tpu_input_wait_seconds` family); keeps the first `cache`
+    batches (device tensors) for a replay."""
+
+    def __init__(self, loader, bench, cache=0):
+        self.loader, self.bench, self.cache_n, self.cache = loader, bench, cache, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            self.bench.before_reader()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.bench.after_reader()
+            if len(self.cache) < self.cache_n:
+                self.cache.append(batch)
+            yield batch
+
+
+def busy_ms_per_step(step, steps=3) -> float:
+    """Device busy time a call of `step` (the CUDA kernels' own time in a
+    torch.profiler trace over `steps` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / steps
+
+
+def mobilenetv3_fit(ptt, ta, state):
+    """PaddleClas's MobileNetV3-Large (scale 1.0, 1000 classes, seed 0)
+    trained through hapi: Model(net, InputSpec) .prepare(Momentum 0.9,
+    LinearWarmup over CosineAnnealingDecay, L2Decay, CrossEntropyLoss,
+    Accuracy(topk=(1, 5)), amp_configs="O1") .fit(2 epochs over the
+    DataLoader: 1280 synthetic 256x256 images, batch 64, shuffled,
+    RandomResizedCrop(224), RandomHorizontalFlip, Normalize, Transpose in
+    spawned persistent workers) with the eval loader (256 images,
+    CenterCrop) after each epoch, then evaluate and predict; the first
+    epoch's batches again from memory (the device step alone);
+    Model.save(training=False) and jit.load against the live model."""
+    import functools
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.io.streaming import stats as instats
+    from paddle_tpu_torch.static import InputSpec
+
+    T = ptt.vision.transforms
+    work = tempfile.mkdtemp(prefix="mbv3_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_tf = T.Compose([T.RandomResizedCrop(MBV3_CROP), T.RandomHorizontalFlip(),
+                          T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+                          T.Transpose()])
+    eval_tf = T.Compose([T.CenterCrop(MBV3_CROP),
+                         T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+                         T.Transpose()])
+    train_ds = ColourClassImages(os.path.join(work, "train.npy"), MBV3_TRAIN, 0, train_tf)
+    eval_ds = ColourClassImages(os.path.join(work, "eval.npy"), MBV3_EVAL, 1, eval_tf)
+    data_s = time.perf_counter() - t0
+    workers = min(8, (os.cpu_count() or 2) - 1)
+    reports = os.path.join(work, "workers")
+    os.makedirs(reports)
+    np.random.seed(0)
+    train_loader = ptt.io.DataLoader(train_ds, batch_size=MBV3_BATCH, shuffle=True, drop_last=True,
+                                     num_workers=workers, persistent_workers=True,
+                                     worker_init_fn=functools.partial(report_worker, reports))
+    eval_loader = ptt.io.DataLoader(eval_ds, batch_size=MBV3_BATCH, num_workers=2)
+    steps_per_epoch = len(train_loader)
+
+    ptt.seed(0)
+    net = ptt.vision.models.mobilenet_v3_large(scale=1.0, num_classes=MBV3_CLASSES)
+    params_m = sum(p.numel() for p in net.parameters()) / 1e6
+    macs = ptt.flops(net, [1, 3, MBV3_CROP, MBV3_CROP])
+    total = MBV3_EPOCHS * steps_per_epoch
+    sched = ptt.optimizer.lr.LinearWarmup(
+        ptt.optimizer.lr.CosineAnnealingDecay(MBV3_LR, T_max=total), MBV3_WARMUP, 0.0, MBV3_LR)
+    opt = ptt.optimizer.Momentum(sched, momentum=0.9, parameters=net.parameters(),
+                                 weight_decay=ptt.regularizer.L2Decay(MBV3_L2))
+    model = ptt.Model(net, inputs=[InputSpec([-1, 3, MBV3_CROP, MBV3_CROP], "float32", "image")],
+                      labels=[InputSpec([-1, 1], "int64", "label")])
+    model.prepare(opt, ptt.nn.CrossEntropyLoss(), ptt.metric.Accuracy(topk=(1, 5)),
+                  amp_configs="O1")
+
+    bench = profiler.benchmark()
+    fed = ReaderTimed(train_loader, bench, cache=steps_per_epoch)
+    clock = dict(losses=[[] for _ in range(MBV3_EPOCHS)], walls=[], waits=[], epoch=0, t=None)
+
+    class FitClock(ptt.callbacks.Callback):
+        """Each step's wall (batch end to batch end, the loss read to the
+        host inside train_batch ends it), its input wait (take_step_wait,
+        as the guardian takes it) and its loss."""
+
+        def on_epoch_begin(self, epoch, logs=None):
+            clock["epoch"], clock["t"] = epoch, time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = time.perf_counter()
+            clock["walls"].append(now - clock["t"])
+            clock["waits"].append(instats.take_step_wait() or 0.0)
+            clock["losses"][clock["epoch"]].append(float(logs["loss"]))
+            clock["t"] = now
+            bench.step(num_samples=MBV3_BATCH)
+            if len(clock["walls"]) == 1:
+                # the first step waited for the workers' spawn: the input
+                # pipeline's window (the verdict) starts after it, as the
+                # step-time means below do
+                instats.reset()
+                instats.take_step_wait()
+
+    instats.reset()
+    instats.take_step_wait()
+    ta.reset_launch_counts()  # the main path: every count 0 before it, read after it
+    bench.begin()
+    t0 = time.perf_counter()
+    history = model.fit(fed, eval_data=eval_loader, epochs=MBV3_EPOCHS, verbose=0,
+                        callbacks=[FitClock()])
+    fit_s = time.perf_counter() - t0
+    ev = model.evaluate(eval_loader, verbose=0)
+    preds = model.predict(eval_loader, stack_outputs=True, verbose=0)
+    torch.cuda.synchronize()
+    bench.end()
+    launches = no_kernel_launched(ta, "mobilenetv3_fit")
+    pipeline = profiler.perf_report()["input_pipeline"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    worker_reports = [json.load(open(os.path.join(reports, f))) for f in sorted(os.listdir(reports))]
+    train_loader._shutdown_workers()
+
+    # the device step alone: the first epoch's batches again, from memory
+    cached = fed.cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in cached:
+        model.train_batch([x], [y])
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / len(cached)
+    busy = busy_ms_per_step(lambda: model.train_batch([cached[0][0]], [cached[0][1]]))
+
+    # inference export: save(training=False) -> jit.load against the live model
+    prefix = os.path.join(work, "mobilenetv3_large")
+    t0 = time.perf_counter()
+    model.save(prefix, training=False)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ptt.jit.load(prefix)
+    load_s = time.perf_counter() - t0
+    x_eval = next(iter(eval_loader))[0]
+    net.eval()
+    with torch.no_grad():
+        live = net(x_eval)
+    export_rec = compare("mobilenetv3_fit jit.load", loaded(x_eval), live, TOL["f32"])
+
+    walls, waits = np.array(clock["walls"]) * 1e3, np.array(clock["waits"]) * 1e3
+    step_ms = float(np.mean(walls[1:]))  # the first step carries the workers' first batch
+    means = [float(np.mean(l)) for l in clock["losses"]]
+    flat = [x for l in clock["losses"] for x in l]
+    preds = preds[0] if isinstance(preds, list) else preds
+    if not (all(math.isfinite(x) for x in flat) and means[1] < means[0]):
+        raise AssertionError(f"mobilenetv3_fit: losses not finite and falling: {clock['losses']}")
+    if len(worker_reports) != workers or any(r["cuda_initialized"] for r in worker_reports):
+        raise AssertionError(f"mobilenetv3_fit: a worker initialised CUDA: {worker_reports}")
+    if tuple(preds.shape) != (MBV3_EVAL, MBV3_CLASSES) or not np.isfinite(
+            np.asarray(preds, np.float32)).all():
+        raise AssertionError(f"mobilenetv3_fit: predict gave {preds.shape}")
+    if pipeline.get("verdict") not in ("starved", "input_limited", "compute"):
+        raise AssertionError(f"mobilenetv3_fit: no input-pipeline verdict: {pipeline}")
+    flops_per_image = 6.0 * macs  # forward 1x, backward 2x, 2 FLOPs a MAC
+    images_per_sec = MBV3_BATCH / (step_ms / 1e3)
+    state["mobilenetv3_launches"] = launches
+    log("mobilenetv3_fit", model="MobileNetV3-Large x1.0", classes=MBV3_CLASSES,
+        params_m=params_m, batch=MBV3_BATCH, image=[3, MBV3_CROP, MBV3_CROP],
+        train_images=MBV3_TRAIN, eval_images=MBV3_EVAL, epochs=MBV3_EPOCHS,
+        steps=len(flat), cpu_count=os.cpu_count(), workers=workers, data_s=data_s, fit_s=fit_s,
+        epoch_mean_loss=means, first_last_loss=[flat[0], flat[-1]],
+        history_last=history, evaluate=ev, predict_shape=list(preds.shape),
+        ms_per_step=step_ms, ms_per_step_p50=float(np.median(walls[1:])),
+        images_per_sec=images_per_sec, input_wait_ms_mean=float(np.mean(waits[1:])),
+        input_wait_ms_p99=float(np.percentile(waits[1:], 99)),
+        input_wait_share=float(waits[1:].sum() / walls[1:].sum()),
+        first_step_ms=float(walls[0]), input_pipeline=pipeline,
+        benchmark=bench.step_info("images/s"),
+        device_step_ms_from_memory=replay_ms, device_busy_ms=busy,
+        device_idle_share_fed=1.0 - busy / step_ms,
+        device_idle_share_from_memory=1.0 - busy / replay_ms,
+        macs_per_image=macs, flops_per_image=flops_per_image,
+        mfu=images_per_sec * flops_per_image / PEAK_FLOPS[torch.bfloat16],
+        peak_mem_gb=peak, save_s=save_s, load_s=load_s, export_vs_live=export_rec,
+        worker_cuda_initialized=[r["cuda_initialized"] for r in worker_reports],
+        launches=launches)
+    del model, net, opt, loaded, cached, fed
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# bench.py's _build_input_stream (bench.py:1535-1688) at its sizes, the
+# defaults of its _input_dims (bench.py:1517-1532)
+STREAM = dict(n_samples=4096, global_batch=64, features=1024, hidden=2048, classes=128,
+              reader_work=100_000, steps=24, seed=7)
+STREAM_WARMUP = 3  # bench.py's warm-up steps (the ring's fill)
+STREAM_LOSS_RTOL = 1e-5
+STREAM_CHECK_BATCHES = (5, 10)  # resume after 5 batches; compare up to batch 10
+STREAM_HELD_BATCHES = 16  # read once for the checks: 10 and the rings' read-ahead
+STREAM_CHECK_SLEEP_S = 0.05  # the donation check's consumer a step: the rings fill meanwhile
+
+
+class HeavyReader:
+    """bench.py's HeavyReader (bench.py:1573-1586) at STREAM's sizes:
+    deterministic per-sample host work (a seeded normal draw and np.sin
+    over `reader_work` elements)."""
+
+    def __len__(self):
+        return STREAM["n_samples"]
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState((STREAM["seed"] * 1_000_003 + i) % 2 ** 31)
+        w = rng.standard_normal(STREAM["reader_work"]).astype(np.float32)
+        f = STREAM["features"]
+        feat = np.sin(w[: (w.size // f) * f]).reshape(f, -1).mean(axis=1)
+        return feat.astype(np.float32), np.int64(i % STREAM["classes"])
+
+
+class HeldReader:
+    """HeavyReader's samples at `indices` read once and served from memory
+    (a reader far faster than the step, so the prefetch rings fill); any
+    other index is read as HeavyReader reads it."""
+
+    def __init__(self, indices):
+        self.reader = HeavyReader()
+        self.items = {int(i): self.reader[int(i)] for i in indices}
+
+    def __len__(self):
+        return len(self.reader)
+
+    def __getitem__(self, i):
+        i = int(i)
+        return self.items[i] if i in self.items else self.reader[i]
+
+
+def stream_step(ptt):
+    """bench.py's build_step: the seeded MLP, SGD 0.01 and a to_static
+    train step returning the loss."""
+    ptt.seed(STREAM["seed"])
+    model = ptt.nn.Sequential(ptt.nn.Linear(STREAM["features"], STREAM["hidden"]), ptt.nn.ReLU(),
+                              ptt.nn.Linear(STREAM["hidden"], STREAM["classes"]))
+    opt = ptt.optimizer.SGD(0.01, parameters=model.parameters())
+
+    @ptt.jit.to_static
+    def train_step(x, y):
+        loss = ptt.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return train_step
+
+
+def stream_loader(dataset, depth, donate, source):
+    from paddle_tpu_torch.io.streaming import StreamingLoader
+
+    return StreamingLoader(dataset, STREAM["global_batch"], seed=STREAM["seed"], shuffle=True,
+                           drop_last=True, prefetch_depth=depth, donate=donate, source=source)
+
+
+def stream_measure(ptt, prefetch_depth):
+    """bench.py's measure: a fresh step fed by a StreamingLoader over
+    HeavyReader (donating when it prefetches), STREAM_WARMUP steps, then
+    STREAM['steps'] timed ones -> (mean step s, p99 wait s, mean wait s,
+    the final loss), the waits from io.streaming's own accumulator (the
+    guardian's input_wait_s)."""
+    from paddle_tpu_torch.io.streaming import stats as instats
+
+    train_step = stream_step(ptt)
+    loader = stream_loader(HeavyReader(), prefetch_depth, prefetch_depth > 0, "bench_input")
+    it = iter(loader)
+    walls, waits, loss = [], [], None
+
+    def nxt():
+        nonlocal it
+        try:
+            return next(it)
+        except StopIteration:  # epoch rolled: keep streaming
+            it = iter(loader)
+            return next(it)
+
+    for _ in range(STREAM_WARMUP):
+        x, y = nxt()
+        float(train_step(x, y).numpy())
+    instats.take_step_wait()  # drop the warm-up's waits
+    for _ in range(STREAM["steps"]):
+        t0 = time.perf_counter()
+        x, y = nxt()
+        loss = float(train_step(x, y).numpy())
+        walls.append(time.perf_counter() - t0)
+        waits.append(instats.take_step_wait() or 0.0)
+    it.close()
+    return float(np.mean(walls)), float(np.percentile(waits, 99)), float(np.mean(waits)), loss
+
+
+def stream_result(ptt):
+    """bench.py's result of _build_input_stream: prefetch 2 against 0."""
+    from paddle_tpu_torch.io.streaming import stats as instats
+
+    dt_on, p99_on, mean_on, loss_on = stream_measure(ptt, 2)
+    verdict_on = instats.starvation_verdict()  # before the off-run's waits
+    dt_off, p99_off, mean_off, loss_off = stream_measure(ptt, 0)
+    step_delta, wait_delta = dt_off - dt_on, mean_off - mean_on
+    per = lambda dt, p99, mean, loss: dict(
+        ms_per_step=dt * 1e3, samples_per_sec=STREAM["global_batch"] / dt,
+        p99_input_wait_ms=p99 * 1e3, mean_input_wait_ms=mean * 1e3, final_loss=loss)
+    return dict(per(dt_on, p99_on, mean_on, loss_on), prefetch_depth=2,
+                prefetch_off=per(dt_off, p99_off, mean_off, loss_off),
+                wait_attribution=dict(step_delta_ms=step_delta * 1e3,
+                                      wait_delta_ms=wait_delta * 1e3,
+                                      explained_fraction=wait_delta / step_delta
+                                      if step_delta > 0 else None),
+                overlap_efficiency=max(0.0, min(1.0, 1.0 - mean_on / mean_off))
+                if mean_off > 0 else None,
+                verdict=verdict_on)
+
+
+def stream_donation_run(ptt, dataset, donate, n):
+    """n batches of a prefetch-2 loader into stream_step's step; the
+    consumer keeps the previous batch across the next take and sleeps
+    STREAM_CHECK_SLEEP_S a step, so the rings are full at each take. ->
+    (the device bytes over the model's own after each take and after each
+    sleep, the batches' bytes, whether each previous batch's storage was 0
+    bytes after the next take)."""
+    step = stream_step(ptt)
+    warm = stream_loader(dataset, 0, False, "smoke_check")
+    x, y = next(iter(warm))
+    float(step(x, y).numpy())
+    del x, y, warm
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    over, got, freed, prev = [], [], [], None
+    it = iter(stream_loader(dataset, 2, donate, "smoke_check"))
+    for _ in range(n):
+        x, y = next(it)
+        over.append(torch.cuda.memory_allocated() - base)
+        if prev is not None:
+            freed.append(all(t.untyped_storage().nbytes() == 0 for t in prev))
+        got.append((x.cpu().numpy().tobytes(), y.cpu().numpy().tobytes()))
+        float(step(x, y).numpy())
+        time.sleep(STREAM_CHECK_SLEEP_S)
+        over.append(torch.cuda.memory_allocated() - base)
+        prev = (x, y)
+    it.close()
+    return over, got, freed
+
+
+def input_stream(ptt, ta, state):
+    """bench.py's _build_input_stream with the port (StreamingLoader
+    prefetch depth 2 with donation against depth 0 over HeavyReader, a
+    to_static MLP step on the card); then, over HeavyReader's samples held
+    in memory: every streamed batch against its host batch, a mid-epoch
+    resume (state_dict after 5 batches, restored into a new loader)
+    against an unbroken run, and the donation bound on
+    torch.cuda.memory_allocated with full rings, against the same run
+    without donation."""
+    from paddle_tpu_torch.io import _collate_np
+    from paddle_tpu_torch.io.streaming import stats as instats
+
+    instats.reset()
+    ta.reset_launch_counts()  # the main path: every count 0 before it, read after it
+    t0 = time.perf_counter()
+    res = stream_result(ptt)
+    bench_s = time.perf_counter() - t0
+    launches = no_kernel_launched(ta, "input_stream")
+    on, off = res["final_loss"], res["prefetch_off"]["final_loss"]
+    if not (math.isfinite(on) and abs(on - off) <= STREAM_LOSS_RTOL * abs(off)):
+        raise AssertionError(f"input_stream: final losses {on} and {off} differ")
+    if res["verdict"].get("verdict") not in ("starved", "input_limited", "compute"):
+        raise AssertionError(f"input_stream: no verdict: {res['verdict']}")
+
+    depth, n_resume, n_total = 2, *STREAM_CHECK_BATCHES
+    plan = stream_loader(HeavyReader(), depth, True, "smoke_check")._plan()
+    held = HeldReader(np.concatenate([plan.global_batch(b)
+                                      for b in range(STREAM_HELD_BATCHES)]))
+    host = []
+    for b in range(n_total):
+        hx, hy = _collate_np([held[int(i)] for i in plan.global_batch(b)])
+        host.append((hx.tobytes(), hy.tobytes()))
+    over, got, freed = stream_donation_run(ptt, held, True, n_total)
+    kept_over, _, _ = stream_donation_run(ptt, held, False, n_total)
+    if got != host:
+        raise AssertionError("input_stream: a streamed batch differs from its host batch")
+    first = stream_loader(held, depth, True, "smoke_check")
+    it = iter(first)
+    head = [(x.cpu().numpy().tobytes(), y.cpu().numpy().tobytes())
+            for x, y in (next(it) for _ in range(n_resume))]
+    saved = first.state_dict()
+    it.close()
+    resumed = stream_loader(held, depth, True, "smoke_check")
+    resumed.load_state_dict(saved)
+    tail = []
+    for x, y in resumed:
+        tail.append((x.cpu().numpy().tobytes(), y.cpu().numpy().tobytes()))
+        if len(tail) == n_total - n_resume:
+            break
+    if head + tail != got:
+        raise AssertionError("input_stream: the resumed stream differs from the unbroken one")
+    batch_bytes = STREAM["global_batch"] * (STREAM["features"] * 4 + 8)
+    allowed = (depth + 2) * batch_bytes + 16 * 512  # + the step's scalars, 512-byte blocks
+    donation = dict(depth=depth, batch_bytes=batch_bytes, allowed_bytes=allowed,
+                    max_over_model_bytes=max(over), batches_held_max=max(over) / batch_bytes,
+                    undonated_max_over_model_bytes=max(kept_over),
+                    undonated_batches_held_max=max(kept_over) / batch_bytes,
+                    previous_freed=sum(freed), takes=len(freed))
+    if not all(freed):
+        raise AssertionError(f"input_stream: a donated batch kept its storage: {donation}")
+    if max(over) > allowed:
+        raise AssertionError(f"input_stream: donation bound broken: {donation}")
+    if max(kept_over) <= allowed:  # the rings did not fill: the bound was not tested
+        raise AssertionError(f"input_stream: without donation the same run stays within the "
+                             f"bound: {donation}")
+    state["input_stream_launches"] = launches
+    log("input_stream", sizes=STREAM, bench_s=bench_s,
+        ms_per_step=res["ms_per_step"], samples_per_sec=res["samples_per_sec"],
+        mean_input_wait_ms=res["mean_input_wait_ms"], p99_input_wait_ms=res["p99_input_wait_ms"],
+        prefetch_off=res["prefetch_off"], wait_attribution=res["wait_attribution"],
+        explained_fraction=res["wait_attribution"]["explained_fraction"],
+        overlap_efficiency=res["overlap_efficiency"], verdict=res["verdict"],
+        final_losses=[on, off],
+        resume=dict(saved_cursor=saved["cursor"], batches=n_total, equal=True),
+        batches_equal_host=n_total, donation=donation, launches=launches)
+
+
+# MobileNets card against CPU (f32, TF32 off). A MobileNet at a small scale
+# amplifies f32 rounding: on the CPU, the port's f32 run against its own
+# f64 run (the same ReLU/ReLU6/hardswish/hardsigmoid decisions) puts logits
+# 1e-6 to 3e-5 apart and some batch norm weight grads 2e-3 to 5e-3 (their
+# sums cancel), over resnet_parity's limits. So each tensor of the card run
+# is held to resnet_parity's limit or to VISION_NOISE_RATIO times the CPU
+# run's own f32-vs-f64 distance of that tensor, whichever is larger (two
+# independent roundings of equal size differ by sqrt(2)x); a grad that is 0
+# but for rounding (the f64 norm under 1e-6 of all grads': a batch norm
+# bias that feeds only another batch norm) within 1e-5 of all grads' norm.
+VISION_PARITY = (("mobilenet_v1", dict(scale=0.25)), ("mobilenet_v2", dict(scale=0.35)),
+                 ("mobilenet_v3_small", dict(scale=0.5)))
+VISION_BATCH, VISION_HW = 4, 96  # the last stage's maps are 3x3
+VISION_NOISE_RATIO, VISION_ZERO, VISION_ZERO_ABS = 2.0, 1e-6, 1e-5
+
+
+def vision_parity_run(ptt, arch, kw, ref_state, dev, dtype, imgs, labels, decisions, force):
+    """One train-mode forward and backward of arch(num_classes=10, **kw)
+    from `ref_state` on `dev` in `dtype` (dropout off): logits, loss, grads
+    (CPU f64) and the kink decisions' disagreements."""
+    model = getattr(ptt.vision.models, arch)(num_classes=10, **kw)
+    model.load_state_dict(ref_state)
+    model.to(device=dev, dtype=dtype).train()
+    for m in model.modules():
+        if isinstance(m, ptt.nn.Dropout):
+            m.training = False
+    with kink_decisions(ptt, decisions, force) as seen:
+        logits = model(imgs.to(dev, dtype))
+        loss = ptt.nn.functional.cross_entropy(logits, labels.to(dev))
+        loss.backward()
+    return dict(logits=logits.detach().double().cpu(), loss=loss.item(),
+                grads={n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+                seen=dict(seen))
+
+
+def vision_parity(ptt):
+    """MobileNetV1, V2 and V3-Small (small scales, B4 3x96x96), each built
+    once from seed 5: the card's f32 run against the CPU's with the card's
+    kink decisions, and the CPU's in f64 for the noise each tensor carries."""
+    rng = np.random.RandomState(6)
+    imgs = torch.from_numpy(rng.randn(VISION_BATCH, 3, VISION_HW, VISION_HW).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 10, (VISION_BATCH,)).astype(np.int64))
+    tol = RESNET_F32_TOL
+    rec = {}
+    for arch, kw in VISION_PARITY:
+        ptt.set_device("cpu")
+        ptt.seed(5)
+        ref_state = getattr(ptt.vision.models, arch)(num_classes=10, **kw).state_dict()
+        ptt.set_device("cuda")
+        decisions = []
+        card = vision_parity_run(ptt, arch, kw, ref_state, "cuda", torch.float32, imgs, labels,
+                                 decisions, False)
+        ptt.set_device("cpu")
+        cpu = vision_parity_run(ptt, arch, kw, ref_state, "cpu", torch.float32, imgs, labels,
+                                decisions, True)
+        f64 = vision_parity_run(ptt, arch, kw, ref_state, "cpu", torch.float64, imgs, labels,
+                                decisions, True)
+        ptt.set_device("cuda")
+        noise = lambda a: _rel(a, f64["logits"])
+        logit_err, logit_noise = _rel(card["logits"], cpu["logits"]), noise(cpu["logits"])
+        loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        loss_noise = abs(cpu["loss"] - f64["loss"]) / abs(f64["loss"])
+        scale = math.sqrt(sum(g.pow(2).sum().item() for g in cpu["grads"].values()))
+        truth = math.sqrt(sum(g.pow(2).sum().item() for g in f64["grads"].values()))
+        worst, worst_zero = (0.0, ""), 0.0
+        for n, g in cpu["grads"].items():
+            err = (card["grads"][n] - g).norm().item()
+            if f64["grads"][n].norm().item() < VISION_ZERO * truth:
+                worst_zero = max(worst_zero, err / scale)
+            else:
+                limit = max(tol["grad"], VISION_NOISE_RATIO * _rel(g, f64["grads"][n]))
+                worst = max(worst, (err / g.norm().item() / limit, n))
+        r = dict(logits_rel=logit_err, logits_cpu_f32_vs_f64=logit_noise, loss_rel=loss_err,
+                 loss_cpu_f32_vs_f64=loss_noise,
+                 worst_grad_over_limit=worst, worst_zero_grad_over_scale=worst_zero,
+                 decision_calls=cpu["seen"]["calls"], decisions_disagree=cpu["seen"]["disagree"],
+                 decisions_worst_over_rms=cpu["seen"]["worst_over_rms"])
+        rec[arch] = r
+        ok = (logit_err <= max(tol["loss"], VISION_NOISE_RATIO * logit_noise)
+              and loss_err <= max(tol["loss"], VISION_NOISE_RATIO * loss_noise)
+              and worst[0] <= 1.0 and worst_zero <= VISION_ZERO_ABS
+              and cpu["seen"]["worst_over_rms"] <= DECISION_TIE)
+        if not ok:
+            raise AssertionError(f"vision_parity: {arch} card and CPU runs disagree: {r}")
+    log("vision_parity", batch=VISION_BATCH, image=[3, VISION_HW, VISION_HW],
+        models={b: kw for b, kw in VISION_PARITY}, tol=dict(
+            tol, noise_ratio=VISION_NOISE_RATIO, zero=VISION_ZERO, zero_abs=VISION_ZERO_ABS,
+            decision_tie=DECISION_TIE), **rec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,serve_bf16,serve_int8,telemetry_ab,"
@@ -6175,7 +6881,8 @@ def main(argv=None) -> int:
                                         "resnet_parity,resnet50_train,ocr_parity,ppocr_e2e,"
                                         "ocr_train,ppyoloe,op_surface,ernie_cls_parity,"
                                         "ernie_finetune,nn_surface,transformer_parity,"
-                                        "transformer_base,guarded_train_bf16,cold_start",
+                                        "transformer_base,guarded_train_bf16,cold_start,"
+                                        "vision_parity,input_stream,mobilenetv3_fit",
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--cold-start-child", metavar="OUT", default=None,
                     help=argparse.SUPPRESS)  # one cold_start process (cold_start runs it)
@@ -6417,6 +7124,12 @@ def main(argv=None) -> int:
         transformer_base(ptt, ta, state)
     if "cold_start" in phases:  # serve_bf16's engine load through the compile cache
         cold_start(ptt, ta, state)
+    if "vision_parity" in phases:
+        vision_parity(ptt)
+    if "input_stream" in phases:  # bench.py:1560-1688, the streaming data tier
+        input_stream(ptt, ta, state)
+    if "mobilenetv3_fit" in phases:  # PaddleClas's MobileNetV3-Large through hapi.Model.fit
+        mobilenetv3_fit(ptt, ta, state)
     for kname, rows in state.get("transformer_by_shape", {}).items():
         rec = records.setdefault(kname, {})
         rec["by_shape"] = rec.get("by_shape", []) + rows
@@ -6453,7 +7166,9 @@ def main(argv=None) -> int:
                "static_resnet50_train": state.get("static_resnet_launches", {}),
                "guarded_train_bf16": state.get("guarded_launches", {}),
                "static_ernie_train_checked": state.get("static_ernie_checked_launches", {}),
-               "cold_start": state.get("cold_start_launches", {})}
+               "cold_start": state.get("cold_start_launches", {}),
+               "input_stream": state.get("input_stream_launches", {}),
+               "mobilenetv3_fit": state.get("mobilenetv3_launches", {})}
     # the float16 variants of B1-B3: their own rows, launched on train_fp16_scaler's path
     fp16_counts = {}
     for key, n in state.get("fp16_variants", {}).items():
@@ -6476,6 +7191,7 @@ def main(argv=None) -> int:
             bound_ms=rec.get("bound_ms"), bound_by=rec.get("bound_by"),
             library_ms=rec.get("library_ms"), variant=rec.get("variant", "cuda_core"),
             **({"by_shape": rec["by_shape"]} if "by_shape" in rec else {})))
+    log("phase_seconds", **phase_seconds())
     print(f"device: {smi}", flush=True)  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 training, ERNIE MLM pretraining and ResNet ImageNet training slices, with
 float16 AMP under a GradScaler, O2, recompute, param groups and
 checkpoints in the JAX package's format; PP-OCR det+rec and PP-YOLOE;
-the paddle Tensor and op surface, and ERNIE sequence classification).
+the paddle Tensor and op surface, and ERNIE sequence classification;
+io, vision transforms and datasets, MobileNetV1-V3 and hapi).
 
 A package of its own beside the JAX package (which stays the reference);
 it imports torch and nothing of jax or paddle_tpu. Entry points run on
@@ -103,6 +104,24 @@ The nn remainder (activations, losses, norms, pools, the functional
 common set, Layer's paddle methods, initializers, nn.utils, decode) is
 plain torch too; attention reaches the flash kernels where a call has no
 mask.
+
+    # input and PaddleClas-style training through hapi: host transforms in
+    # spawned workers, batches to the card through a ring of pinned buffers
+    T = paddle.vision.transforms
+    train = MyDataset(transform=T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                                           T.Normalize(mean, std, data_format="HWC"),
+                                           T.Transpose()]))
+    loader = paddle.io.DataLoader(train, batch_size=64, shuffle=True, num_workers=7,
+                                  persistent_workers=True)
+    model = paddle.Model(paddle.vision.models.mobilenet_v3_large())
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy(topk=(1, 5)),
+                  amp_configs="O1")
+    model.fit(loader, epochs=2)
+    macs = paddle.flops(model.network, [1, 3, 224, 224])
+
+    # sharded, resumable, device-prefetched input with reader-lag telemetry
+    loader = paddle.io.streaming.StreamingLoader(dataset, 64, seed=7, donate=True)
+    state = loader.state_dict()   # resume mid-epoch: loader.load_state_dict(state)
 """
 import torch
 
@@ -137,6 +156,8 @@ from .ops.linalg import (bmm, cdist, cholesky, cholesky_solve, corrcoef, cov, di
 from .ops.einsum import einsum  # noqa: E402
 from .ops.inplace import *  # noqa: F401,F403,E402
 from . import autograd, linalg, metric, profiler  # noqa: E402
+from . import callbacks, hapi, io  # noqa: E402
+from .hapi import Model, summary  # noqa: E402
 from .autograd import (PyLayer, enable_grad, grad, is_grad_enabled, no_grad,  # noqa: E402
                        set_grad_enabled)
 
@@ -236,3 +257,51 @@ def batch(reader, batch_size, drop_last=False):
             yield b
 
     return batched
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """paddle.flops (python/paddle/hapi/dynamic_flops.py; the JAX package's
+    paddle_tpu/__init__.py:260-305): the MACs of the Conv2D and Linear
+    layers over one forward of zeros of `input_size`, an integer."""
+    from .framework.device import current_device
+    from .nn.layers.common import Linear as _Linear
+    from .nn.layers.conv import Conv2D as _Conv2D
+
+    total = {"flops": 0}
+    hooks = []
+
+    def conv_hook(lyr, ins, outs):
+        w = lyr.weight
+        out_elems = 1
+        for d in outs.shape[2:]:
+            out_elems *= int(d)
+        k = 1
+        for d in w.shape[1:]:
+            k *= int(d)
+        total["flops"] += int(outs.shape[0]) * int(w.shape[0]) * k * out_elems
+
+    def linear_hook(lyr, ins, outs):
+        n = 1
+        for d in outs.shape[:-1]:
+            n *= int(d)
+        total["flops"] += n * int(lyr.weight.shape[0]) * int(lyr.weight.shape[1])
+
+    for _, sub in net.named_sublayers(include_self=False):
+        if isinstance(sub, _Conv2D):
+            hooks.append(sub.register_forward_post_hook(conv_hook))
+        elif isinstance(sub, _Linear):
+            hooks.append(sub.register_forward_post_hook(linear_hook))
+    was_training = net.training
+    net.eval()
+    dev = next((p.device for p in net.parameters()), None) or current_device()
+    try:
+        with torch.no_grad():
+            net(torch.zeros(tuple(input_size), dtype=torch.float32, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+        if was_training:
+            net.train()
+    if print_detail:
+        print(f"Total FLOPs (MACs): {total['flops']:,}")
+    return total["flops"]

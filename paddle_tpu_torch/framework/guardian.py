@@ -654,7 +654,7 @@ class TrainingGuardian:
             "anomaly", anomaly=kind, policy=policy, step=step,
             loss=_loss_float(loss_raw), grad_norm=grad_norm,
             peak_hbm_bytes=(wm or {}).get("peak_hbm_bytes"),
-            input_wait_s=None,  # io.streaming's wait arrives with io (Queue A item 4)
+            input_wait_s=_input_wait_delta(),
         )
         try:
             inj_site, self._injected_site = self._injected_site, None
@@ -815,7 +815,7 @@ class TrainingGuardian:
             lr=float(opt.get_lr()),
             collectives=self._collective_deltas(),
             peak_hbm_bytes=wm.get("peak_hbm_bytes"),
-            input_wait_s=None,
+            input_wait_s=_input_wait_delta(),
         )
         interval = self.lkg_interval
         if interval > 0 and step % interval == 0:
@@ -892,3 +892,18 @@ def check_compiled_state(tensors, origin: str) -> None:
         f"training guardian: {kind} in state written back by {origin} "
         f"(flight recorder: {paths})", kind=kind, dump_paths=paths,
     )
+
+
+def _input_wait_delta():
+    """Per-step input-pipeline wait (`input_wait_s`): how long this step's
+    data took to arrive, from the streaming tier's stats accumulator
+    (io/streaming/stats.py). None when no input pipeline has reported a
+    wait (loader-less loops record nothing rather than a misleading 0.0).
+    Consuming the delta here also closes one (wall, wait) sample of the
+    starved-vs-slow window that perf_report()['input_pipeline'] judges."""
+    try:
+        from ..io.streaming import stats as _instats
+
+        return _instats.take_step_wait()
+    except Exception:
+        return None

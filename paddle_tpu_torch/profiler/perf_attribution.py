@@ -29,8 +29,8 @@ each compiled program. The port compiles no program, so:
    B/s, NVIDIA's data sheet) and a CPU fallback.
 
 4. **`perf_report()`**: programs, census, watermark, the serving and
-   compilation sections; `input_pipeline` reads "unavailable" until
-   io.streaming is ported (ROADMAP Queue A item 4).
+   compilation sections, and `input_pipeline`: io.streaming's wait totals
+   and its starved/input_limited/compute verdict.
 
 Collection sites check `telemetry.enabled()`; explicit queries
 (`perf_report`, `live_array_census`) always work.
@@ -407,9 +407,27 @@ _PROGRAM_KEYS = (
 
 
 def _input_pipeline_section() -> dict:
-    return {"verdict": "unavailable",
-            "reason": "io.streaming is not ported yet (ROADMAP Queue A item 4)",
-            "attribution_hint": None}
+    """The starved-vs-slow join: the streaming tier's wait totals and
+    rolling-window verdict (io/streaming/stats.py), annotated against the
+    device-side story this report carries. A 'starved' step is one the
+    program records CANNOT explain (the card waited for the host), exactly
+    the case where chasing `programs[]` MFU would mislead."""
+    try:
+        from ..io.streaming import stats as _instats
+
+        section = _instats.summary()
+    except Exception as e:  # the report must not die on a partial install
+        return {"verdict": "unavailable", "error": str(e)[-200:]}
+    hints = {
+        "starved": "host input pipeline bounds the step; device attribution "
+                   "(programs[]) cannot explain the step time: fix the "
+                   "reader/prefetch, not the kernels",
+        "input_limited": "input wait is a visible slice of the step; both "
+                         "host and device stories apply",
+        "compute": "device-bound: see programs[] cost records + roofline",
+    }
+    section["attribution_hint"] = hints.get(section.get("verdict"))
+    return section
 
 
 def _serving_section() -> dict:

@@ -59,8 +59,16 @@ class Benchmark:
             dt = time.perf_counter() - self._reader_t
             self.reader_cost.update(dt)
             self._reader_t = None
-            # the JAX package also feeds io.streaming's wait statistics
-            # here; that module arrives with io (ROADMAP Queue A item 4)
+            # every reader wait also lands in the paddle_tpu_input_* family
+            # (io.streaming.stats), so Benchmark users and StreamingLoader
+            # users feed the same dashboards, and the guardian's per-step
+            # input_wait_s sees this path too
+            try:
+                from ..io.streaming import stats as _instats
+
+                _instats.observe_wait(dt, source="benchmark")
+            except Exception:
+                pass
 
     def step(self, num_samples=None):
         if not self.running:

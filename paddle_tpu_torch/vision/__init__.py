@@ -1,6 +1,8 @@
-"""paddle.vision: the ResNet family (vision/models), box ops with nms
-(vision/ops) and the host-side resize (vision/transforms). The other
-models and datasets wait for later slices."""
-from . import models, ops, transforms
+"""paddle.vision: the ResNet and MobileNetV1-V3 families (vision/models),
+the synthetic and folder datasets (vision/datasets), the host-side
+transforms (vision/transforms) and box ops with nms and deform_conv2d
+(vision/ops). The other models, the rest of vision/ops and the image
+backend registry wait for a later slice (ROADMAP Queue A item 4b)."""
+from . import datasets, models, ops, transforms
 
-__all__ = ["models", "ops", "transforms"]
+__all__ = ["datasets", "models", "ops", "transforms"]

@@ -187,8 +187,25 @@ def test_roofline_and_peak_table_match_jax():
 def test_perf_report_passes_both_schema_checks():
     """perf_report() validates under the port's and the JAX package's
     validate_report, with a program record, a census that sees a live
-    tensor of an annotated module, and the unavailable input pipeline."""
+    tensor of an annotated module, and the input pipeline of a
+    streaming-fed run: its verdict is one of starved/input_limited/compute
+    and its waits are the loader's."""
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.io.streaming import StreamingLoader
+    from paddle_tpu_torch.io.streaming import stats as tstats
+
+    class Rows(Dataset):
+        def __len__(self):
+            return 16
+
+        def __getitem__(self, i):
+            return np.full((4,), i, np.float32), np.int64(i)
+
     tpa.reset()
+    tstats.reset()
+    for x, y in StreamingLoader(Rows(), 4, prefetch_depth=2):
+        tstats.take_step_wait()
+        assert x.shape == (4, 4)
     keep = ptt.nn.Linear(64, 32)
     tpa.annotate_module("probe", keep)
     tpa.record_compiled("static_executor", "replay[1ops,1feeds]", flops=128.0,
@@ -196,7 +213,9 @@ def test_perf_report_passes_both_schema_checks():
     tpa.sample_watermark(tag="test", force=True)
     rep = tpa.perf_report()
     assert tpa.validate_report(rep) is rep and jpa.validate_report(json.loads(json.dumps(rep)))
-    assert rep["input_pipeline"]["verdict"] == "unavailable"
+    pipe = rep["input_pipeline"]
+    assert pipe["verdict"] in ("starved", "input_limited", "compute"), pipe
+    assert pipe["batches_total"] == 4 and pipe["samples_total"] == 16 and pipe["steps"] == 3
     assert rep["live_arrays"]["by_module"]["probe"]["bytes"] == (64 * 32 + 32) * 4
     assert rep["programs"][-1]["flops"] == 128.0
     crash = tpa.snapshot_for_crash()
